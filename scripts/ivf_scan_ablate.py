@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""IVF list-scan strategy ablation on the real chip (VERDICT r3 task 1:
-"test the ivf.py design note instead of asserting it").
+"""IVF list-scan strategy ablation on one device ("test the ivf.py design
+note instead of asserting it").
 
 At the flagship shape (D=1536, K=4096, nprobe ∈ {50, 200}, SAQ bpd=2,
 N=1M gate-structured corpus) measures:
@@ -10,15 +10,15 @@ N=1M gate-structured corpus) measures:
   scorer     — the rotated-query window scan (methods/base.residual_scorer):
                queries/centroids rotate into code space once, windows only
                dequantize.  Same scores (f32 op order aside).
-  flat_packed — NO IVF: the dense packed Pallas kernel over a flat-encoded
-               corpus (the measured-best flat path) — the honest TPU
-               baseline any probing strategy must beat at batch sizes.
+  flat_packed — NO IVF: the dense packed scan over a flat-encoded corpus
+               — the baseline any probing strategy must beat at batch
+               sizes.
 
 Also sweeps the query batch (8 / 64 / 256) since probing's win regime is
 small batches: a batched IVF scan approaches a dense scan's work while a
-dense scan amortizes resident queries on the MXU.
+dense scan amortizes all queries in one matmul per tile.
 
-Prints one JSON line per cell; paste the table into BENCH_NOTES.md.
+Prints one JSON line per cell.
 """
 
 import json
@@ -35,7 +35,7 @@ import numpy as np
 from vq_tpu.cli import _enable_compilation_cache
 from vq_tpu.core.config import IVFConfig, KMeansConfig, Metric, SAQConfig
 from vq_tpu.index.ivf import IvfQuantizedIndex
-from vq_tpu.kernels.adc import exact_topk
+from vq_tpu.kernels.adc import _finalize, exact_topk
 from vq_tpu.methods import saq as saq_mod
 from vq_tpu.metrics.recall import recall_at_k
 
@@ -43,7 +43,7 @@ from vq_tpu.metrics.recall import recall_at_k
 def gen_gate(n, d, nq, rank=None, csize=100, spread=1.0, seed=11):
     """Planted-neighborhood corpus at FULL intrinsic rank by default — the
     rank-32 gate variant is quantization-insensitive (see bench.py
-    ivf_flagship docstring / BENCH_NOTES corpus-tuning table).  Blocked
+    ivf_flagship docstring).  Blocked
     generation (bench.gen_fullrank_corpus) so z and x never coexist."""
     from bench import gen_fullrank_corpus
 
@@ -130,10 +130,8 @@ def main():
 
         # dense packed flat scan (full corpus, exact over the quantization)
         def run_flat():
-            s, i = saq_mod.scan_topk(
-                quant.plan, quant.params, q, codes_flat, 10, Metric.L2,
-                packed_cache=cache, use_packed=True,
-            )
+            s, i = quant.packed_scan_raw(q, cache, 10, Metric.L2)
+            s, i = _finalize(s, i, Metric.L2, jnp.sum(q * q, axis=-1))
             return np.asarray(i)
 
         ids_f = run_flat()

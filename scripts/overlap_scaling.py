@@ -8,8 +8,8 @@ time per doubling).  The virtual devices timeshare one host CPU, so
 absolute throughput scaling is not observable here — what this measures is
 (a) the sharded program compiles and runs at every width, (b) the
 relative cost of the merge strategy: per-chunk all_gather (overlap mode)
-vs one post-scan gather, at the same total work.  On real ICI-connected
-chips the per-chunk gathers hide behind the next chunk's MXU work; on the
+vs one post-scan gather, at the same total work.  On real devices joined
+by a fast interconnect the per-chunk gathers hide behind the next chunk's scan; on the
 shared-core CPU mesh they can only add overhead, so overlap≈dense here is
 the pass criterion (the collective is not serializing the scan).
 

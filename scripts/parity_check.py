@@ -99,13 +99,13 @@ def _rankaware(bpd, codebook="lloyd", packing="dense"):
                                      packing=packing))
 
 
-# Gate-corpus grid (VERDICT r3 task 9): the planted-neighborhood corpus at
+# Gate-corpus grid: the planted-neighborhood corpus at
 # the reference study's geometry (N=100k, D=1536, unit rows) — recall sits
 # near the reference's dbpedia regime (~0.8 at 1 bpd) instead of the demo
 # table's ~0.11, so deltas are meaningful.  "ref dbpedia" columns are the
 # reference study's GEOMETRY-MATCHED dbpedia-100k results
 # (results_full_20260612_235308.csv) — context anchors, not same-data
-# parity (the real dataset is egress-blocked; BENCH_NOTES.md).
+# parity (the real dataset needs a download).
 GATE_GRID = [
     ("pq M=192 B=8 (1 bpd)", lambda: _pq(192), 0.8034),
     ("saq 1-bit ('saq_paper')", lambda: _saq(1.0), 0.8608),
@@ -196,11 +196,9 @@ def main() -> int:
            "Same data as the reference's logs/benchmark_runs.db demo runs",
            "(np.random.seed(42) gaussian, N=10000, D=1024, queries = first 100",
            "rows; reference data/datasets.py:79-82).  Reference values are the",
-           "recorded CPU/faiss results; ours are the TPU engine.  Rows with",
+           "recorded CPU/faiss results; ours are vq_tpu's.  Rows with",
            "ref '—' are study variants the demo DB never ran, tracked for",
-           "cross-round regression.  On a TPU backend the saq/rankaware/rabitq",
-           "rows exercise the packed-word Pallas kernel (FlatQuantizedIndex",
-           "builds the PackedCorpus cache), so these are fused-path numbers.",
+           "cross-round regression.",
            "",
            "| config | vq_tpu R@10 | ref R@10 | Δ | vq_tpu R@100 | ref R@100 | Δ |",
            "|---|---|---|---|---|---|---|"]
@@ -221,7 +219,7 @@ def main() -> int:
         "- RaBitQ 1-bit matches faiss within noise (Δ −0.003 @10, +0.004 @100)",
         "  since the scan switched to the paper's unbiased estimator",
         "  (divide by ⟨o,ō⟩ rather than project — methods/rabitq.py).",
-        "- Run on TPU v5e via scripts/parity_check.py (regenerates the demo",
+        "- Regenerate with scripts/parity_check.py (rebuilds the demo",
         "  dataset bit-for-bit; no network needed).",
         "",
         "## Gate-corpus method matrix (recall ≈ 0.8 regime)",
@@ -230,10 +228,10 @@ def main() -> int:
         "N=100k, D=1536, unit rows, 1024 queries — the quality regime of the",
         "reference's dbpedia study (its demo table sits at R@10 ≈ 0.11 on",
         "random gaussians, where ±0.006 parity tolerates large relative",
-        "error — VERDICT r3 weak #8).  'dbpedia anchor' = the reference",
+        "error).  'dbpedia anchor' = the reference",
         "study's geometry-matched dbpedia-100k value",
         "(results_full_20260612_235308.csv) — a context anchor, not",
-        "same-data parity (real dataset egress-blocked).",
+        "same-data parity (the real dataset needs a download).",
         "",
         "| config | R@10 | dbpedia anchor | R@100 |",
         "|---|---|---|---|",

@@ -4,7 +4,7 @@
 Parity with the reference's scripts/prep_msmarco_bench.py (SURVEY.md §2.1
 P45): build base/query files from raw sources (npy shards, fvecs, or an HF
 stream when `datasets` is installed), chunked so memory stays bounded.
-TPU pods mmap these per host instead of re-streaming HF at fit time
+Multi-host runs mmap these per host instead of re-streaming HF at fit time
 (SURVEY.md §7.3 "53M ingestion").
 
 Usage:

@@ -36,7 +36,7 @@ def main() -> None:
     # the FULL-RANK power-law corpus — the planted rank-32 gate corpus is
     # quantization-insensitive (bpd 1 vs 4 measured identical there), so
     # an allocation ablation needs the discriminating spectrum the bpd
-    # ladder was tuned on (bench.gen_fullrank_corpus, BENCH_NOTES r4)
+    # ladder was tuned on (bench.gen_fullrank_corpus)
     n = 32_768 if fast else 262_144
     d, nq = 1536, 256
     x, q = bench.gen_fullrank_corpus(jax, jnp, n, d, nq)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Union-scan serving-batch memory/time profile (VERDICT r4 task 7).
+"""Union-scan serving-batch memory/time profile.
 
 Round-4 weak #4: the union scan's L2 recompute materialized (Q, P, D)
 (315 MB at Q=256, P=200, D=1536) and the one-block policy ran the whole

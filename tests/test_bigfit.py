@@ -1,4 +1,4 @@
-"""53M-safe fit paths (VERDICT weak #3 / next-round #7).
+"""53M-safe fit paths.
 
 The contract: fitting on a host corpus (numpy / np.memmap / array-like)
 must never materialize the full corpus — only host-side row samples or

@@ -89,23 +89,6 @@ def test_plot_suite(tmp_path):
         assert os.path.exists(p) and os.path.getsize(p) > 0
 
 
-def test_scan_stats_staged_counters():
-    """QueryRuntimeMetrics analog: the staged report's counters are exact
-    functions of the scan geometry and the kernel's tiles-scanned count."""
-    from vq_tpu.utils.profiling import ScanStats
-
-    st = ScanStats(num_rows=2048, num_queries=8, dim=64,
-                   code_bytes_per_row=16.0)
-    r = st.report_staged(0.01, tiles_scanned=1, tiles_total=4)
-    assert r["tiles_total"] == 4 and r["tiles_scanned"] == 1
-    assert r["scan_fraction"] == 0.25
-    assert r["fast_bitsum"] == 4 * 3 * 32  # stage-1 reads 3 f32 per tile
-    assert r["acc_bitsum"] == int(0.25 * 2048 * 16 * 8)
-    assert r["total_comp_cnt"] == 512 * 8
-    dense = st.report(0.01)
-    assert r["qps"] == dense["qps"]
-
-
 def test_planted_dataset_has_neighbor_structure():
     """load_planted_dataset: unit rows, registry dispatch, and planted
     near-duplicate neighborhoods (queries' true neighbors are same-document
@@ -131,8 +114,8 @@ def test_planted_dataset_has_neighbor_structure():
 
 def test_ivf_benchmark_packed_runners(tmp_path):
     """The probed-tile packed IVF is reachable from the harness runner
-    table (VERDICT r4 missing #4; reference exposes every method through
-    its runner table, benchmarks/ivf_benchmark.py:351-359)."""
+    table (the reference exposes every method through its runner table,
+    benchmarks/ivf_benchmark.py:351-359)."""
     from vq_tpu.bench.ivf_bench import METHOD_RUNNERS
 
     assert "saq_ivf_packed" in METHOD_RUNNERS

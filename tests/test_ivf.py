@@ -125,8 +125,8 @@ def test_ivf_decompress_by_global_id():
 
 def test_ivf_search_fn_cached_across_calls():
     """The jitted search is created once per (index, chunk) and re-traces
-    only per new (block shape, k, nprobe) — VERDICT r3 weak #1 regression:
-    the old per-call closure re-traced on EVERY query block."""
+    only per new (block shape, k, nprobe) — a regression test: the old
+    per-call closure re-traced on EVERY query block."""
     data = load_dummy_dataset(num_vectors=1500, dim=32, num_queries=40, seed=9)
     idx = IvfQuantizedIndex(SQ(SQConfig(num_bits=8)), _ivf()).fit(data.vectors)
     traces = {"n": 0}
@@ -151,7 +151,7 @@ def test_ivf_search_fn_cached_across_calls():
 
 
 def test_ivf_fit_streams_chunks_never_materializes():
-    """Chunked IVF construction (VERDICT r3 missing #2): fit on an
+    """Chunked IVF construction: fit on an
     array-like corpus whose __array__ raises must succeed touching only
     bounded chunks — `jnp.asarray(X)` on the whole corpus fails loudly."""
     from test_bigfit import VirtualRows
@@ -304,8 +304,8 @@ def test_ivf_union_matches_windows_strategy():
 
 
 def test_union_qrs_slab_path_matches_oneshot(monkeypatch):
-    """The probe-slabbed L2 recompute (bounded (Q, slab, D) buffers,
-    VERDICT r4 weak #4) must produce the same results as the one-shot
+    """The probe-slabbed L2 recompute (bounded (Q, slab, D) buffers)
+    must produce the same results as the one-shot
     (Q, P, D) difference — force the slab path by shrinking the budget."""
     import vq_tpu.index.ivf as ivf_mod
 
@@ -324,8 +324,7 @@ def test_union_qrs_slab_path_matches_oneshot(monkeypatch):
 
 def test_union_query_block_cap_matches_single_block():
     """A tiny decode budget forces the union path to map multiple query
-    blocks; results must equal the one-block run (ADVICE r4: very large
-    serving batches used to run as one unclamped block)."""
+    blocks; results must equal the one-block run."""
     data = load_dummy_dataset(num_vectors=2500, dim=32, num_queries=40,
                               seed=31)
     idx = IvfQuantizedIndex(SQ(SQConfig(num_bits=8)), _ivf(nq=16, nprobe=6)
@@ -342,7 +341,7 @@ def test_union_query_block_cap_matches_single_block():
 def test_union_pad_queries_masked_out():
     """q_valid masks a block's pad rows out of the batch union: an
     invalid query contributes no probes (its scores come back -inf) and
-    valid queries' results are unchanged (ADVICE r4)."""
+    valid queries' results are unchanged."""
     import jax
     import jax.numpy as jnp
 

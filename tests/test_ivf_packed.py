@@ -1,4 +1,4 @@
-"""IvfPackedFlatIndex: IVF routing as a tile mask over the packed kernel.
+"""IvfPackedFlatIndex: IVF routing as a tile mask over the packed scan.
 
 Semantics under test (index/ivf_packed.py): candidates are exactly the
 rows of tiles overlapping the batch's probed clusters, scored with the

@@ -1,11 +1,8 @@
-"""Packed-word Pallas kernel (kernels/pallas_packed.py) vs the XLA scans.
+"""The jnp packed scan (kernels/packed.py) vs the code-row XLA scans.
 
-All kernel runs here use interpret mode (CPU).  Compiled-mode equality on
-the real chip is asserted by bench.py's `assert_ok` check (packed kernel vs
-XLA fallback, bit-identical ids at 512-multiple shapes, every bench run) —
-interpret-mode equality alone is NOT sufficient evidence: a real
-compiled-only Mosaic mis-DMA was found on v5e (see choose_beff and
-test_choose_beff_avoids_skinny_16row_blocks below).
+The packed scan reads the tile-ordered word layout and the precomputed
+factor columns; the code-row scans (methods/*.scan_topk) parse the stored
+byte rows.  Equal ids and scores check the layout and the factor algebra.
 """
 
 import jax.numpy as jnp
@@ -13,34 +10,39 @@ import numpy as np
 import pytest
 
 from vq_tpu.core.config import Metric, SAQConfig
-from vq_tpu.kernels.pallas_packed import pack_words
+from vq_tpu.kernels.adc import _finalize
+from vq_tpu.kernels.packed import _unpack_words, make_segspec, pack_words
 from vq_tpu.methods import saq as saq_mod
 
 
-def test_pack_words_roundtrip_all_widths():
+def _packed_topk(m, q, codes, k, metric, norms=None, num_valid=None,
+                 cache=None):
+    """Finalized top-k through the packed scan (methods' packed_scan_raw)."""
+    if cache is None:
+        cache = m.prepare_tile_cache(
+            codes, norms=norms if metric == Metric.NIP else None)
+    q = jnp.asarray(q, jnp.float32)
+    s, i = m.packed_scan_raw(q, cache, k, metric, num_valid=num_valid,
+                             use_bf16=False)
+    return _finalize(s, i, metric, jnp.sum(q * q, axis=-1))
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 5, 6, 8])
+def test_pack_words_roundtrip_all_widths(bits):
+    """pack_words → the scan's _unpack_words is the identity at every
+    width (beff = bits rounded up to a power of two)."""
     rng = np.random.default_rng(0)
-    for bits in (1, 2, 3, 4, 5, 6, 8):
-        ln = 37
-        beff = {1: 1, 2: 2, 3: 4, 4: 4, 5: 8, 6: 8, 8: 8}[bits]
-        u = 32 // beff
-        n = 3 * u  # row-interleaved words need N % u == 0
-        idx = rng.integers(0, 1 << bits, size=(n, ln))
-        # tile=None is the explicit row-interleaved diagnostic layout (the
-        # default is the kernel's tile-ordered layout)
-        w = np.asarray(pack_words(jnp.asarray(idx), bits, tile=None))
-        assert w.shape == (n // u, ln)
-        # manual unpack: word row r shift-slot j holds source row r*u + j
-        chunks = [((w.astype(np.uint32) >> (beff * j)) & ((1 << bits) - 1))
-                  for j in range(u)]
-        got = np.stack(chunks, axis=1).reshape(n, ln)
-        np.testing.assert_array_equal(got, idx)
+    ln, n = 37, 1024
+    seg = make_segspec(bits, ln, "uniform", -1)
+    idx = rng.integers(0, 1 << bits, size=(n, ln))
+    w = pack_words(jnp.asarray(idx), bits, seg.beff)
+    assert w.shape == (n // seg.u, ln)
+    np.testing.assert_array_equal(np.asarray(_unpack_words(w, seg)), idx)
 
 
 def test_pack_words_tile_order_roundtrip():
-    """Kernel layout: within each `tile` rows, shift-plane j holds natural
-    rows [j·tile/u, (j+1)·tile/u) — so concatenating the planes along
-    sublanes restores row order with no interleave (what _unpack_words
-    relies on)."""
+    """Within each `tile` rows, shift-plane j holds natural rows
+    [j·tile/u, (j+1)·tile/u) — what _unpack_words relies on."""
     rng = np.random.default_rng(4)
     for bits, beff, tile in ((1, 1, 512), (2, 2, 512), (4, 4, 512),
                              (8, 8, 512), (1, 2, 512), (3, 4, 1024)):
@@ -60,28 +62,14 @@ def test_pack_words_tile_order_roundtrip():
         np.testing.assert_array_equal(got, idx)
 
 
-def test_choose_beff_avoids_skinny_16row_blocks():
-    """Regression for the v5e Mosaic mis-DMA: (16-sublane, <128-lane) int32
-    blocks fetch the wrong grid block; 1-bit skinny segments must store at
-    2 bits (u=16 → 32-row blocks).  Full-lane segments keep dense width."""
-    from vq_tpu.kernels.pallas_packed import choose_beff
-
-    assert choose_beff(1, 14) == 2
-    assert choose_beff(1, 128) == 1
-    assert choose_beff(1, 1536) == 1
-    assert choose_beff(2, 20) == 2
-    assert choose_beff(4, 28) == 4
-
-
 def test_pack_words_explicit_beff_roundtrip():
+    """1-bit codes stored at beff=2 (u=16) unpack exactly."""
     rng = np.random.default_rng(2)
-    idx = rng.integers(0, 2, size=(32, 14))
-    # 1-bit at beff=2, explicit row-interleaved layout
-    w = np.asarray(pack_words(jnp.asarray(idx), 1, 2, tile=None))
-    assert w.shape == (2, 14)
-    chunks = [((w.astype(np.uint32) >> (2 * j)) & 1) for j in range(16)]
-    got = np.stack(chunks, axis=1).reshape(32, 14)
-    np.testing.assert_array_equal(got, idx)
+    idx = rng.integers(0, 2, size=(512, 14))
+    seg = make_segspec(1, 14, "uniform", -1)._replace(beff=2)
+    w = pack_words(jnp.asarray(idx), 1, 2)
+    assert w.shape == (32, 14)
+    np.testing.assert_array_equal(np.asarray(_unpack_words(w, seg)), idx)
 
 
 def _mk_saq(rng, n=640, d=48, bpd=2.0, codebook="uniform", use_pca=True):
@@ -104,12 +92,9 @@ def test_saq_packed_matches_xla_scan(codebook, metric):
 
     s_ref, i_ref = saq_mod.scan_topk(
         m.plan, m.params, jnp.asarray(q), codes, 8, metric, norms=norms,
-        use_bf16=False, use_packed=False,
+        use_bf16=False,
     )
-    s_pk, i_pk = saq_mod.scan_topk(
-        m.plan, m.params, jnp.asarray(q), codes, 8, metric, norms=norms,
-        use_bf16=False, use_packed=True, interpret=True,
-    )
+    s_pk, i_pk = _packed_topk(m, q, codes, 8, metric, norms=norms)
     np.testing.assert_array_equal(np.asarray(i_pk), np.asarray(i_ref))
     np.testing.assert_allclose(
         np.asarray(s_pk), np.asarray(s_ref), rtol=2e-4, atol=2e-4
@@ -122,24 +107,22 @@ def test_saq_packed_cache_reuse_and_num_valid():
     q = rng.standard_normal((8, x.shape[1])).astype(np.float32)
     cache = saq_mod.prepare_packed(m.plan, m.params, codes)
     nv = jnp.int32(300)
-    s_pk, i_pk = saq_mod.scan_topk(
-        m.plan, m.params, jnp.asarray(q), codes, 5, Metric.L2,
-        use_bf16=False, use_packed=True, interpret=True, packed_cache=cache,
-        num_valid=nv,
-    )
     s_ref, i_ref = saq_mod.scan_topk(
         m.plan, m.params, jnp.asarray(q), codes, 5, Metric.L2,
-        use_bf16=False, use_packed=False, num_valid=nv,
+        use_bf16=False, num_valid=nv,
     )
-    np.testing.assert_array_equal(np.asarray(i_pk), np.asarray(i_ref))
+    for _ in range(2):  # one cache serves repeated scans
+        s_pk, i_pk = _packed_topk(m, q, codes, 5, Metric.L2, num_valid=nv,
+                                  cache=cache)
+        np.testing.assert_array_equal(np.asarray(i_pk), np.asarray(i_ref))
     assert np.asarray(i_pk).max() < 300
 
 
 @pytest.mark.parametrize("codebook", ["uniform", "lloyd"])
 def test_saq_packed_high_bpd_values_path(codebook):
     """bpd=6 derived codebooks allocate ≥5-bit segments → the f32
-    value-plane layout (kernels/pallas_packed.py "values") must stay
-    id-exact vs the XLA fallback."""
+    value-plane layout (kernels/packed.py "values") must stay id-exact vs
+    the code-row scan."""
     rng = np.random.default_rng(21)
     m, x, codes = _mk_saq(rng, n=640, d=48, bpd=6.0, codebook=codebook)
     if codebook == "lloyd":
@@ -148,12 +131,9 @@ def test_saq_packed_high_bpd_values_path(codebook):
     q = rng.standard_normal((12, 48)).astype(np.float32)
     s_ref, i_ref = saq_mod.scan_topk(
         m.plan, m.params, jnp.asarray(q), codes, 8, Metric.L2,
-        use_bf16=False, use_packed=False,
+        use_bf16=False,
     )
-    s_pk, i_pk = saq_mod.scan_topk(
-        m.plan, m.params, jnp.asarray(q), codes, 8, Metric.L2,
-        use_bf16=False, use_packed=True, interpret=True,
-    )
+    s_pk, i_pk = _packed_topk(m, q, codes, 8, Metric.L2)
     np.testing.assert_array_equal(np.asarray(i_pk), np.asarray(i_ref))
     np.testing.assert_allclose(
         np.asarray(s_pk), np.asarray(s_ref), rtol=2e-4, atol=2e-4
@@ -176,12 +156,9 @@ def test_rabitq_packed_matches_xla_scan(num_bits, metric):
 
     s_ref, i_ref = rb_mod.scan_topk(
         m.params, jnp.asarray(q), codes, 8, metric, num_bits, norms=norms,
-        use_bf16=False, use_packed=False,
+        use_bf16=False,
     )
-    s_pk, i_pk = rb_mod.scan_topk(
-        m.params, jnp.asarray(q), codes, 8, metric, num_bits, norms=norms,
-        use_bf16=False, use_packed=True, interpret=True,
-    )
+    s_pk, i_pk = _packed_topk(m, q, codes, 8, metric, norms=norms)
     np.testing.assert_array_equal(np.asarray(i_pk), np.asarray(i_ref))
     np.testing.assert_allclose(
         np.asarray(s_pk), np.asarray(s_ref), rtol=2e-4, atol=2e-4
@@ -205,12 +182,8 @@ def test_rankaware_packed_matches_xla_scan(packing, metric):
 
     s_ref, i_ref = m.scan_topk(
         jnp.asarray(q), codes, 8, metric, norms=norms, use_bf16=False,
-        use_packed=False,
     )
-    s_pk, i_pk = m.scan_topk(
-        jnp.asarray(q), codes, 8, metric, norms=norms, use_bf16=False,
-        use_packed=True, interpret=True,
-    )
+    s_pk, i_pk = _packed_topk(m, q, codes, 8, metric, norms=norms)
     np.testing.assert_array_equal(np.asarray(i_pk), np.asarray(i_ref))
     np.testing.assert_allclose(
         np.asarray(s_pk), np.asarray(s_ref), rtol=2e-4, atol=2e-4
@@ -218,8 +191,8 @@ def test_rankaware_packed_matches_xla_scan(packing, metric):
 
 
 def test_saq_packed_cascade_matches_dense_recall():
-    """Stage-1 (head segments, in-kernel top-k) + exact rescore finds the
-    same neighbors as the dense scan on easy data."""
+    """Stage-1 (head segments) + exact rescore finds the same neighbors as
+    the dense scan on easy data."""
     rng = np.random.default_rng(7)
     # d=128 → two 64-dim allocation blocks; the steep variance profile makes
     # the allocator give them different widths → ≥ 2 segments
@@ -230,12 +203,11 @@ def test_saq_packed_cascade_matches_dense_recall():
 
     s_d, i_d = saq_mod.scan_topk(
         m.plan, m.params, jnp.asarray(q), codes, 10, Metric.L2,
-        use_bf16=False, use_packed=False,
+        use_bf16=False,
     )
     s_c, i_c = saq_mod.scan_topk(
         m.plan, m.params, jnp.asarray(q), codes, 10, Metric.L2,
-        use_bf16=False, use_packed=True, interpret=True,
-        prune_segments=1, rerank_factor=10,
+        use_bf16=False, prune_segments=1, rerank_factor=10,
     )
     # top-1 must agree; cascade top-10 overlap ≥ 80% (stage-1 is an estimate)
     np.testing.assert_array_equal(
@@ -248,154 +220,6 @@ def test_saq_packed_cascade_matches_dense_recall():
     assert overlap >= 0.8, overlap
 
 
-@pytest.mark.parametrize("metric", [Metric.L2, Metric.IP, Metric.NIP])
-def test_saq_variance_prune_matches_dense(metric):
-    """The in-kernel variance-prune stage (varsEstDist analog) is exact:
-    identical ids/scores to the unpruned packed scan, f32 path.  Covers
-    Metric.NIP via the norm-envelope bound (tile_stats cols 3-4)."""
-    rng = np.random.default_rng(17)
-    m, x, codes = _mk_saq(rng, n=1536, d=48)
-    q = rng.standard_normal((8, 48)).astype(np.float32)
-    norms = jnp.linalg.norm(jnp.asarray(x), axis=-1)
-    cache = saq_mod.prepare_packed(
-        m.plan, m.params, codes,
-        norms=norms if metric == Metric.NIP else None,
-    )
-    assert cache.tile_stats is not None and cache.tile_stats.shape == (3, 5)
-
-    s_ref, i_ref = saq_mod.scan_topk(
-        m.plan, m.params, jnp.asarray(q), codes, 10, metric, norms=norms,
-        use_bf16=False, use_packed=True, interpret=True, packed_cache=cache,
-        prune_tiles=False,
-    )
-    s_pr, i_pr = saq_mod.scan_topk(
-        m.plan, m.params, jnp.asarray(q), codes, 10, metric, norms=norms,
-        use_bf16=False, use_packed=True, interpret=True, packed_cache=cache,
-        prune_tiles=True,
-    )
-    np.testing.assert_array_equal(np.asarray(i_pr), np.asarray(i_ref))
-    np.testing.assert_allclose(np.asarray(s_pr), np.asarray(s_ref), rtol=1e-6)
-
-
-def test_saq_variance_prune_nip_skips_tiles():
-    """NIP prune fires when the divisor-norm envelope separates tiles.
-
-    The NIP divisor is a caller-provided side-channel (the study pipeline's
-    q·x̂/‖x‖ convention, reference exact_search.py:4-8), so tiles whose
-    stored norms are large get small score bounds U/nmin and are skipped
-    once better candidates fill the top-k.  (On corpora where ‖x̂‖ tracks
-    ‖x‖ the Cauchy-Schwarz numerator grows with the divisor and the bound
-    approaches ‖q‖ — NIP pruning is structurally weak there; this test
-    pins the mechanics on a norm-separated divisor.)"""
-    rng = np.random.default_rng(31)
-    d = 48
-    base = rng.standard_normal((512, d)).astype(np.float32)
-    far = rng.standard_normal((1024, d)).astype(np.float32)
-    x = np.concatenate([base, far]).astype(np.float32)
-    m = saq_mod.SAQ(SAQConfig(bits_per_dim=4.0, use_pca=False))
-    m.fit(x)
-    codes = jnp.asarray(m.compress(x))
-    # divisor side-channel: far tiles carry 1000× norms → tiny bounds
-    norms = jnp.concatenate([
-        jnp.ones((512,), jnp.float32),
-        jnp.full((1024,), 1000.0, jnp.float32),
-    ])
-    cache = saq_mod.prepare_packed(m.plan, m.params, codes, norms=norms)
-    q = jnp.asarray(base[:8] + 0.01 * rng.standard_normal((8, d)),
-                    jnp.float32)
-    outs, outi, scanned = saq_mod._packed_scan(
-        m.plan, m.params, q, cache, 10, Metric.NIP, interpret=True,
-        use_bf16=False, prune=True,
-    )
-    s_ref, i_ref = saq_mod.scan_topk(
-        m.plan, m.params, q, codes, 10, Metric.NIP, norms=norms,
-        use_bf16=False, use_packed=True, interpret=True, prune_tiles=False,
-    )
-    from vq_tpu.kernels.adc import _finalize
-
-    s_pr, i_pr = _finalize(outs, outi, Metric.NIP,
-                           jnp.sum(q * q, axis=-1))
-    np.testing.assert_array_equal(np.asarray(i_pr), np.asarray(i_ref))
-    assert int(scanned) < 3, int(scanned)
-
-
-def test_saq_variance_prune_skips_hopeless_tiles():
-    """Corpus with one tile of near neighbors and two tiles of far rows:
-    after the first tile fills the top-k, the far tiles' factor bound loses
-    and the kernel skips them (scanned count < tile count)."""
-    rng = np.random.default_rng(23)
-    d = 48
-    base = rng.standard_normal((512, d)).astype(np.float32)
-    far = 50.0 + 5.0 * rng.standard_normal((1024, d)).astype(np.float32)
-    x = np.concatenate([base, far]).astype(np.float32)
-    cfg = SAQConfig(bits_per_dim=4.0, use_pca=False)
-    m = saq_mod.SAQ(cfg)
-    m.fit(x)
-    codes = jnp.asarray(m.compress(x))
-    cache = saq_mod.prepare_packed(m.plan, m.params, codes)
-    q = jnp.asarray(base[:8] + 0.01 * rng.standard_normal((8, d)),
-                    jnp.float32)
-
-    outs, outi, scanned = saq_mod._packed_scan(
-        m.plan, m.params, q, cache, 10, Metric.L2, interpret=True,
-        use_bf16=False, prune=True,
-    )
-    assert int(scanned) < 3, int(scanned)  # far tiles skipped
-    s_ref, i_ref = saq_mod.scan_topk(
-        m.plan, m.params, q, codes, 10, Metric.L2, use_bf16=False,
-        use_packed=True, interpret=True, prune_tiles=False,
-    )
-    from vq_tpu.kernels.adc import _finalize
-
-    s_pr, i_pr = _finalize(outs, outi, Metric.L2, jnp.sum(q * q, axis=-1))
-    np.testing.assert_array_equal(np.asarray(i_pr), np.asarray(i_ref))
-
-
-def test_rabitq_variance_prune_matches_dense():
-    from vq_tpu.core.config import RaBitQConfig
-    from vq_tpu.methods import rabitq as rb_mod
-
-    rng = np.random.default_rng(29)
-    x = rng.standard_normal((1024, 40)).astype(np.float32)
-    m = rb_mod.RaBitQ(RaBitQConfig(num_bits=4))
-    m.fit(x)
-    codes = jnp.asarray(m.compress(x))
-    cache = rb_mod.prepare_packed(m.params, codes, 4)
-    assert cache.tile_stats is not None
-    q = jnp.asarray(rng.standard_normal((8, 40)), jnp.float32)
-    s_ref, i_ref = rb_mod.scan_topk(
-        m.params, q, codes, 10, Metric.L2, 4, use_bf16=False,
-        use_packed=True, interpret=True, packed_cache=cache,
-        prune_tiles=False,
-    )
-    s_pr, i_pr = rb_mod.scan_topk(
-        m.params, q, codes, 10, Metric.L2, 4, use_bf16=False,
-        use_packed=True, interpret=True, packed_cache=cache,
-        prune_tiles=True,
-    )
-    np.testing.assert_array_equal(np.asarray(i_pr), np.asarray(i_ref))
-
-
-def test_rankaware_variance_prune_matches_dense():
-    from vq_tpu.core.config import RankAwareConfig
-    from vq_tpu.methods import rankaware as ra_mod
-
-    rng = np.random.default_rng(31)
-    x = (rng.standard_normal((1024, 40)) * (1.0 + np.arange(40))[::-1]
-         ).astype(np.float32)
-    m = ra_mod.RankAware(RankAwareConfig(bits_per_dim=2.0))
-    m.fit(x)
-    codes = jnp.asarray(m.compress(x))
-    q = jnp.asarray(rng.standard_normal((8, 40)), jnp.float32)
-    s_ref, i_ref = m.scan_topk(q, codes, 10, Metric.L2, use_bf16=False,
-                               use_packed=True, interpret=True,
-                               prune_tiles=False)
-    s_pr, i_pr = m.scan_topk(q, codes, 10, Metric.L2, use_bf16=False,
-                             use_packed=True, interpret=True,
-                             prune_tiles=True)
-    np.testing.assert_array_equal(np.asarray(i_pr), np.asarray(i_ref))
-
-
 def test_nip_refuses_normless_packed_cache():
     """A PackedCorpus built without real norms must be rejected for NIP
     instead of silently returning un-normalized scores."""
@@ -405,151 +229,119 @@ def test_nip_refuses_normless_packed_cache():
     cache = saq_mod.prepare_packed(m.plan, m.params, codes)  # no norms
     assert not cache.has_norms
     with pytest.raises(ValueError, match="norms"):
-        saq_mod.scan_topk(
-            m.plan, m.params, q, codes, 5, Metric.NIP,
-            norms=jnp.linalg.norm(jnp.asarray(x), axis=-1),
-            use_packed=True, interpret=True, packed_cache=cache,
-        )
+        m.packed_scan_raw(q, cache, 5, Metric.NIP)
     with pytest.raises(ValueError, match="norms"):
-        saq_mod.scan_topk(
-            m.plan, m.params, q, codes, 5, Metric.NIP,
-            use_packed=True, interpret=True,
-        )
+        saq_mod.scan_topk(m.plan, m.params, q, codes, 5, Metric.NIP)
 
 
 def test_saq_packed_high_bits_derived_codebook():
-    """B=7/8 derived-codebook segments stay on the fused path (select-sum
-    unrolls 2^B in-kernel selects; gate raised to max_bits=8 — VERDICT r2
-    missing #8).  Equality vs the XLA scan at bpd=7.5, codebook=lloyd."""
-    from vq_tpu.kernels.pallas_packed import packed_scan_available
-
+    """B=7/8 derived-codebook segments take the value-plane layout;
+    equality vs the code-row scan at bpd=7.5, codebook=lloyd."""
     rng = np.random.default_rng(41)
     m, x, codes = _mk_saq(rng, n=640, d=32, bpd=7.5, codebook="lloyd")
     assert max(m.plan.seg_bits) >= 7, m.plan
     segs, lv = saq_mod.packed_segspecs(m.plan, m.params)
-    # the gate no longer rejects B=7/8 on bit width (backend check aside)
-    for seg in segs:
-        assert seg.bits <= 8
+    assert all(s.dequant == "values" for s in segs if s.bits >= 7)
     q = rng.standard_normal((8, 32)).astype(np.float32)
     s_ref, i_ref = saq_mod.scan_topk(
         m.plan, m.params, jnp.asarray(q), codes, 8, Metric.L2,
-        use_bf16=False, use_packed=False,
+        use_bf16=False,
     )
-    s_pk, i_pk = saq_mod.scan_topk(
-        m.plan, m.params, jnp.asarray(q), codes, 8, Metric.L2,
-        use_bf16=False, use_packed=True, interpret=True,
-    )
+    s_pk, i_pk = _packed_topk(m, q, codes, 8, Metric.L2)
     np.testing.assert_array_equal(np.asarray(i_pk), np.asarray(i_ref))
     np.testing.assert_allclose(
         np.asarray(s_pk), np.asarray(s_ref), rtol=2e-4, atol=2e-4
     )
 
 
-def test_saq_sorted_cache_matches_unsorted():
-    """Norm-ordered packing (sort_rows): ids map back through perm, results
-    identical to the unsorted cache; num_valid is refused."""
-    rng = np.random.default_rng(43)
-    # heterogeneous norms so the sort actually reorders
-    scale = np.exp(rng.standard_normal(1536) * 0.5)[:, None]
-    x = (rng.standard_normal((1536, 48)) * scale).astype(np.float32)
-    cfg = SAQConfig(bits_per_dim=3.0, use_pca=False)
-    m = saq_mod.SAQ(cfg)
-    m.fit(x)
-    codes = jnp.asarray(m.compress(x))
-    q = jnp.asarray(rng.standard_normal((8, 48)), jnp.float32)
-
-    plain = saq_mod.prepare_packed(m.plan, m.params, codes)
-    srt = saq_mod.prepare_packed(m.plan, m.params, codes, sort_rows=True)
-    assert srt.perm is not None
-    assert srt.prune_hint  # heterogeneous norms → the bound can fire
-
-    s_u, i_u = saq_mod.scan_topk(
-        m.plan, m.params, q, codes, 10, Metric.L2, use_bf16=False,
-        use_packed=True, interpret=True, packed_cache=plain,
-        prune_tiles=False,
-    )
-    for prune in (False, True):
-        s_s, i_s = saq_mod.scan_topk(
-            m.plan, m.params, q, codes, 10, Metric.L2, use_bf16=False,
-            use_packed=True, interpret=True, packed_cache=srt,
-            prune_tiles=prune,
-        )
-        np.testing.assert_array_equal(np.asarray(i_s), np.asarray(i_u))
-        np.testing.assert_allclose(np.asarray(s_s), np.asarray(s_u),
-                                   rtol=1e-5)
-    # sorted + heterogeneous → the prune stage actually skips tiles when
-    # the query batch sits in ONE norm band (a skip needs every resident
-    # query to agree, so mixed-norm batches scan everything)
-    low = np.argsort(np.linalg.norm(x, axis=1))[:4]
-    qn = jnp.asarray(x[low], jnp.float32)
-    _, _, scanned = saq_mod._packed_scan(
-        m.plan, m.params, qn, srt, 10, Metric.L2, interpret=True,
-        use_bf16=False, prune=True,
-    )
-    assert int(scanned) < srt.factors.shape[0] // 512
-
-    with pytest.raises(ValueError, match="num_valid"):
-        saq_mod.scan_topk(
-            m.plan, m.params, q, codes, 10, Metric.L2, use_bf16=False,
-            use_packed=True, interpret=True, packed_cache=srt,
-            num_valid=jnp.int32(100),
-        )
+def _restricted_ref(m, codes, q, tiles, n, k):
+    """Brute-force L2 top-k over the rows of `tiles` (maximize form, the
+    raw scan's convention without the query constant −‖q‖²)."""
+    rec = m.decompress(np.asarray(codes))
+    rows = np.concatenate([np.arange(t * 512, (t + 1) * 512) for t in tiles])
+    rows = rows[rows < n]
+    d2 = ((np.asarray(q)[:, None, :] - rec[None, rows, :]) ** 2).sum(-1)
+    q_sq = (np.asarray(q) ** 2).sum(-1, keepdims=True)
+    return rows[np.argsort(d2, axis=1)[:, :k]], q_sq - np.sort(d2, axis=1)[:, :k]
 
 
 def test_tile_gather_mask_matches_restricted_scan():
-    """The gather-compacted tile mask (scalar-prefetch indirection): a
-    partial mask must equal a brute scan restricted to masked-in rows,
-    an all-ones mask must equal the unmasked scan, and the static
-    mask_cap short grid must be exact both under and over the cap."""
+    """The gather-compacted tile mask: a partial mask must equal a brute
+    scan restricted to masked-in rows, and an all-ones mask must equal the
+    unmasked scan."""
     rng = np.random.default_rng(11)
     m, x, codes = _mk_saq(rng, n=4096)
     q = jnp.asarray(rng.standard_normal((8, x.shape[1])).astype(np.float32))
-    cache = m.prepare_tile_cache(codes, num_queries=8)
-    if cache is None:  # tiny-geometry gate refused the packed layout
-        cache = saq_mod.prepare_packed(m.plan, m.params, codes,
-                                       sort_rows=False)
+    cache = m.prepare_tile_cache(codes)
     nb = cache.factors.shape[0] // 512
     assert nb >= 4
 
-    s_um, i_um = m.packed_scan_raw(q, cache, 6, Metric.L2,
-                                   use_bf16=False, interpret=True)
+    s_um, i_um = m.packed_scan_raw(q, cache, 6, Metric.L2, use_bf16=False)
     ones = jnp.ones((nb,), jnp.int32)
     s_m1, i_m1 = m.packed_scan_raw(q, cache, 6, Metric.L2, use_bf16=False,
-                                   interpret=True, tile_mask=ones)
+                                   tile_mask=ones)
     np.testing.assert_array_equal(np.asarray(i_m1), np.asarray(i_um))
 
     mask = (jnp.arange(nb) % 3 == 1).astype(jnp.int32)
     s_mp, i_mp = m.packed_scan_raw(q, cache, 6, Metric.L2, use_bf16=False,
-                                   interpret=True, tile_mask=mask)
-    # brute reference over exactly the masked-in rows
-    rec = m.decompress(np.asarray(codes))
-    rows = np.concatenate([np.arange(t * 512, (t + 1) * 512)
-                           for t in np.nonzero(np.asarray(mask))[0]])
-    rows = rows[rows < x.shape[0]]
-    d2 = ((np.asarray(q)[:, None, :] - rec[None, rows, :]) ** 2).sum(-1)
-    ref_ids = rows[np.argsort(d2, axis=1)[:, :6]]
-    # raw maximize-form omits the query-constant −‖q‖² (callers finalize)
-    q_sq = (np.asarray(q) ** 2).sum(-1, keepdims=True)
-    ref_s = q_sq - np.sort(d2, axis=1)[:, :6]
+                                   tile_mask=mask)
+    ref_ids, ref_s = _restricted_ref(
+        m, codes, q, np.nonzero(np.asarray(mask))[0], x.shape[0], 6)
     np.testing.assert_allclose(np.asarray(s_mp), ref_s, rtol=1e-3,
                                atol=1e-3)
     tied = np.isclose(np.asarray(s_mp), ref_s, rtol=1e-4, atol=1e-4)
     assert np.all((np.asarray(i_mp) == ref_ids) | tied)
 
-    # mask_cap: under the cap (short grid) and over it (full fallback)
-    for cap in (int(np.asarray(mask).sum()) + 1, 2):
-        s_c, i_c = m.packed_scan_raw(q, cache, 6, Metric.L2, use_bf16=False,
-                                     interpret=True, tile_mask=mask,
-                                     mask_cap=cap)
-        np.testing.assert_array_equal(np.asarray(i_c), np.asarray(i_mp))
-        np.testing.assert_allclose(np.asarray(s_c), np.asarray(s_mp),
-                                   rtol=1e-5)
+
+@pytest.mark.parametrize("case", ["at_cap", "under_cap", "over_cap", "empty"])
+def test_tile_mask_gather_cap(case):
+    """mask_cap bounds the compacted tile walk: a masked-in count at or
+    under the cap walks only `cap` tiles, one over it falls back to the
+    full tile set — exact either way; an empty mask scores nothing."""
+    rng = np.random.default_rng(19)
+    m, x, codes = _mk_saq(rng, n=20 * 512 - 100)
+    q = jnp.asarray(rng.standard_normal((5, x.shape[1])).astype(np.float32))
+    cache = m.prepare_tile_cache(codes)
+    nb = cache.factors.shape[0] // 512
+    tiles = [] if case == "empty" else [1, 4, 7, nb - 1]
+    mask = jnp.zeros((nb,), jnp.int32).at[jnp.asarray(tiles, jnp.int32)].set(1)
+    cap = {"at_cap": 4, "under_cap": 9, "over_cap": 3, "empty": 4}[case]
+    s, i = m.packed_scan_raw(q, cache, 7, Metric.L2, use_bf16=False,
+                             tile_mask=mask, mask_cap=cap)
+    if case == "empty":
+        assert np.all(np.isneginf(np.asarray(s)))
+        return
+    s_full, i_full = m.packed_scan_raw(q, cache, 7, Metric.L2,
+                                       use_bf16=False, tile_mask=mask)
+    np.testing.assert_array_equal(np.asarray(i), np.asarray(i_full))
+    np.testing.assert_array_equal(np.asarray(s), np.asarray(s_full))
+    ref_ids, ref_s = _restricted_ref(m, codes, q, tiles, x.shape[0], 7)
+    np.testing.assert_allclose(np.asarray(s), ref_s, rtol=1e-3, atol=1e-3)
+    tied = np.isclose(np.asarray(s), ref_s, rtol=1e-4, atol=1e-4)
+    assert np.all((np.asarray(i) == ref_ids) | tied)
+
+
+def test_packed_scan_ragged_chunks_match_xla_scan():
+    """A tile count that is not a multiple of the 32-tile scan chunk (and a
+    ragged last tile) matches the code-row scan at large k."""
+    rng = np.random.default_rng(12)
+    m, x, codes = _mk_saq(rng, n=37 * 512 - 200)
+    q = jnp.asarray(rng.standard_normal((16, x.shape[1])).astype(np.float32))
+    norms = jnp.linalg.norm(jnp.asarray(x), axis=-1)
+    for k in (32, 100):
+        s_ref, i_ref = saq_mod.scan_topk(
+            m.plan, m.params, q, codes, k, Metric.L2, norms=norms,
+            use_bf16=False,
+        )
+        s_pk, i_pk = _packed_topk(m, q, codes, k, Metric.L2)
+        np.testing.assert_array_equal(np.asarray(i_pk), np.asarray(i_ref))
+        np.testing.assert_allclose(np.asarray(s_pk), np.asarray(s_ref),
+                                   rtol=2e-4, atol=2e-4)
 
 
 def test_merge_fold_large_k_matches_xla_scan():
-    """k >= 32 routes through fold_running_topk_merge (hit-gated
-    extraction + bitonic merge) — ids must stay bit-identical to the
-    XLA fallback, including across many tiles and with a tile mask."""
+    """Large k (several tiles' worth of candidates) — ids must stay
+    identical to the code-row scan, including with a tile mask."""
     rng = np.random.default_rng(12)
     m, x, codes = _mk_saq(rng, n=4096)
     q = jnp.asarray(rng.standard_normal((16, x.shape[1])).astype(np.float32))
@@ -557,29 +349,20 @@ def test_merge_fold_large_k_matches_xla_scan():
     for k in (32, 64, 100):
         s_ref, i_ref = saq_mod.scan_topk(
             m.plan, m.params, q, codes, k, Metric.L2, norms=norms,
-            use_bf16=False, use_packed=False,
+            use_bf16=False,
         )
-        s_pk, i_pk = saq_mod.scan_topk(
-            m.plan, m.params, q, codes, k, Metric.L2, norms=norms,
-            use_bf16=False, use_packed=True, interpret=True,
-        )
+        s_pk, i_pk = _packed_topk(m, q, codes, k, Metric.L2)
         np.testing.assert_array_equal(np.asarray(i_pk), np.asarray(i_ref))
         np.testing.assert_allclose(np.asarray(s_pk), np.asarray(s_ref),
                                    rtol=2e-4, atol=2e-4)
 
-    # masked path at large k (gather + merge-fold compose)
-    cache = saq_mod.prepare_packed(m.plan, m.params, codes, sort_rows=False)
+    cache = saq_mod.prepare_packed(m.plan, m.params, codes)
     nb = cache.factors.shape[0] // 512
     mask = (jnp.arange(nb) % 2 == 0).astype(jnp.int32)
     s_mp, i_mp = m.packed_scan_raw(q, cache, 64, Metric.L2, use_bf16=False,
-                                   interpret=True, tile_mask=mask)
-    rec = m.decompress(np.asarray(codes))
-    rows = np.concatenate([np.arange(t * 512, (t + 1) * 512)
-                           for t in np.nonzero(np.asarray(mask))[0]])
-    d2 = ((np.asarray(q)[:, None, :] - rec[None, rows, :]) ** 2).sum(-1)
-    ref_ids = rows[np.argsort(d2, axis=1)[:, :64]]
-    q_sq = (np.asarray(q) ** 2).sum(-1, keepdims=True)
-    ref_s = q_sq - np.sort(d2, axis=1)[:, :64]
+                                   tile_mask=mask)
+    ref_ids, ref_s = _restricted_ref(
+        m, codes, q, np.nonzero(np.asarray(mask))[0], x.shape[0], 64)
     np.testing.assert_allclose(np.asarray(s_mp), ref_s, rtol=1e-3, atol=1e-3)
     tied = np.isclose(np.asarray(s_mp), ref_s, rtol=1e-4, atol=1e-4)
     assert np.all((np.asarray(i_mp) == ref_ids) | tied)

@@ -1,132 +1,112 @@
-"""Pallas fused-scan kernel logic, exercised in interpreter mode on CPU.
+"""The XLA PQ scan (kernels/adc.scan_codes_topk) against a decoded brute
+force in numpy: L2 and IP scores, the num_valid limit, tie order, and large
+k over several tiles.  f32 scoring throughout (the CPU backend has no bf16
+dot), so the comparisons are exact up to f32 summation order."""
 
-The compiled path runs on real TPU (bench.py and the TPU CLI); interpret
-mode validates the kernel's decode/score math without hardware.
-"""
-
-import jax
-import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from vq_tpu.kernels.adc import decode_pq
-from vq_tpu.kernels.pallas_scan import (
-    pallas_scan_available,
-    pallas_topk_fused_available,
-    pq_scan_topk_fused,
-    pq_score_all,
-)
+import jax.numpy as jnp
+
+from vq_tpu.core.config import Metric
+from vq_tpu.kernels.adc import decode_pq, scan_codes_topk
 
 
 def _setup(n=1024, d=64, q=16, m=8, k=16, seed=0):
     rng = np.random.default_rng(seed)
-    queries = jnp.asarray(rng.standard_normal((q, d)), jnp.float32)
-    codes = jnp.asarray(rng.integers(0, k, (n, m)), jnp.uint8)
-    cb = jnp.asarray(rng.standard_normal((m, k, d // m)), jnp.float32)
+    queries = rng.standard_normal((q, d)).astype(np.float32)
+    codes = rng.integers(0, k, (n, m)).astype(np.uint8)
+    cb = rng.standard_normal((m, k, d // m)).astype(np.float32)
     return queries, codes, cb
 
 
-def test_pallas_l2_scores_match_reference():
-    queries, codes, cb = _setup()
-    s = pq_score_all(queries, codes, cb, tile=256, l2=True, interpret=True)
-    dec = decode_pq(cb, codes)
-    ip = jnp.dot(queries, dec.T)
-    ref = 2.0 * ip - jnp.sum(dec * dec, axis=-1)[None, :]
-    np.testing.assert_allclose(np.asarray(s), np.asarray(ref), rtol=2e-2, atol=2e-1)
-    # exact ranking agreement at bf16 precision
-    ti = np.asarray(jax.lax.top_k(s, 5)[1])
-    ri = np.asarray(jax.lax.top_k(ref, 5)[1])
-    agree = np.mean([len(set(a) & set(b)) / 5 for a, b in zip(ti, ri)])
-    assert agree > 0.9
+def _decode_np(cb, codes):
+    m = cb.shape[0]
+    return np.concatenate([cb[j][codes[:, j]] for j in range(m)], axis=1)
 
 
-def test_pallas_ip_scores_match_reference():
+def _brute(queries, codes, cb, metric):
+    """Natural-form scores over the decoded corpus (float64)."""
+    dec = _decode_np(cb, codes).astype(np.float64)
+    q = queries.astype(np.float64)
+    if metric == Metric.L2:
+        return ((q[:, None, :] - dec[None]) ** 2).sum(-1)
+    return q @ dec.T
+
+
+def _check_topk(s, i, ref, k, ascending):
+    """ids agree with the reference ranking up to exact f32 near-ties, and
+    scores equal the reference score of the returned id."""
+    s, i = np.asarray(s), np.asarray(i)
+    got = np.take_along_axis(ref, i.astype(np.int64), axis=1)
+    np.testing.assert_allclose(s, got, rtol=1e-4, atol=1e-3)
+    want = np.sort(ref, axis=1)[:, :k] if ascending else -np.sort(-ref, axis=1)[:, :k]
+    np.testing.assert_allclose(s, want, rtol=1e-4, atol=1e-3)
+
+
+def test_decode_pq_matches_numpy_gather():
+    queries, codes, cb = _setup(seed=8)
+    np.testing.assert_array_equal(
+        np.asarray(decode_pq(jnp.asarray(cb), jnp.asarray(codes))),
+        _decode_np(cb, codes),
+    )
+
+
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.IP])
+def test_pq_scan_matches_decoded_brute_force(metric):
     queries, codes, cb = _setup(seed=1)
-    s = pq_score_all(queries, codes, cb, tile=256, l2=False, interpret=True)
-    dec = decode_pq(cb, codes)
-    ref = jnp.dot(queries, dec.T)
-    np.testing.assert_allclose(np.asarray(s), np.asarray(ref), rtol=2e-2, atol=2e-1)
+    s, i = scan_codes_topk(jnp.asarray(queries), jnp.asarray(codes),
+                           jnp.asarray(cb), k=7, metric=metric,
+                           use_bf16=False)
+    ref = _brute(queries, codes, cb, metric)
+    _check_topk(s, i, ref, 7, ascending=(metric == Metric.L2))
 
 
-def test_pallas_fused_topk_matches_full_topk():
-    """The in-kernel running top-k must equal top-k over the full score
-    matrix — same scores, same indices, same tie order (lowest id first)."""
-    queries, codes, cb = _setup(n=1024, seed=2)
-    k = 7
-    ts, ti = pq_scan_topk_fused(queries, codes, cb, k=k, tile=256, l2=True,
-                                interpret=True)
-    s_full = pq_score_all(queries, codes, cb, tile=256, l2=True, interpret=True)
-    rs, ri = jax.lax.top_k(s_full, k)
-    np.testing.assert_allclose(np.asarray(ts), np.asarray(rs), rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(ti), np.asarray(ri))
-
-
-def test_pallas_fused_topk_limit_masks_rows():
+def test_pq_scan_num_valid_masks_rows():
     queries, codes, cb = _setup(n=512, seed=3)
     limit = 300
-    ts, ti = pq_scan_topk_fused(queries, codes, cb, k=5, tile=256, l2=True,
-                                limit=jnp.int32(limit), interpret=True)
-    assert np.all(np.asarray(ti) < limit)
-    s_full = pq_score_all(queries, codes, cb, tile=256, l2=True, interpret=True)
-    rs, ri = jax.lax.top_k(s_full[:, :limit], 5)
-    np.testing.assert_array_equal(np.asarray(ti), np.asarray(ri))
+    s, i = scan_codes_topk(jnp.asarray(queries), jnp.asarray(codes),
+                           jnp.asarray(cb), k=5, metric=Metric.L2,
+                           tile_rows=128, use_bf16=False,
+                           num_valid=jnp.int32(limit))
+    assert np.all(np.asarray(i) < limit)
+    ref = _brute(queries, codes[:limit], cb, Metric.L2)
+    _check_topk(s, i, ref, 5, ascending=True)
 
 
-def test_pallas_fused_topk_duplicate_rows_tie_to_lowest_id():
-    """Identical rows produce identical scores; the kernel must keep both
-    (ids are unique) and order ties by ascending id like lax.top_k."""
+def test_pq_scan_duplicate_rows_tie_to_lowest_id():
+    """Identical rows produce identical scores; ties order by ascending id
+    across tile boundaries (tile_rows=96 splits the corpus into 6 tiles)."""
     rng = np.random.default_rng(4)
     row = rng.integers(0, 16, (1, 8))
-    codes = jnp.asarray(np.repeat(row, 512, axis=0), jnp.uint8)  # all identical
+    codes = jnp.asarray(np.repeat(row, 512, axis=0), jnp.uint8)
     queries = jnp.asarray(rng.standard_normal((4, 64)), jnp.float32)
     cb = jnp.asarray(rng.standard_normal((8, 16, 8)), jnp.float32)
-    ts, ti = pq_scan_topk_fused(queries, codes, cb, k=6, tile=256, l2=True,
-                                interpret=True)
-    np.testing.assert_array_equal(np.asarray(ti), np.tile(np.arange(6), (4, 1)))
-    assert np.allclose(np.asarray(ts), np.asarray(ts)[:, :1])
+    s, i = scan_codes_topk(queries, codes, cb, k=6, metric=Metric.L2,
+                           tile_rows=96, use_bf16=False)
+    np.testing.assert_array_equal(np.asarray(i), np.tile(np.arange(6), (4, 1)))
+    assert np.allclose(np.asarray(s), np.asarray(s)[:, :1])
 
 
-def test_pallas_grouped_decode_matches_group1():
-    """group>1 fuses g subquantizers into one block-diagonal matmul; the
-    scores must be bit-identical to the per-subquantizer decode."""
-    queries, codes, cb = _setup(n=1024, seed=5)
-    base = pq_score_all(queries, codes, cb, tile=256, l2=True, interpret=True)
-    for g in (2, 4):
-        s = pq_score_all(queries, codes, cb, tile=256, l2=True, interpret=True,
-                         group=g)
-        np.testing.assert_array_equal(np.asarray(s), np.asarray(base))
-    # fused top-k path too
-    ts1, ti1 = pq_scan_topk_fused(queries, codes, cb, k=5, tile=256, l2=True,
-                                  interpret=True)
-    ts4, ti4 = pq_scan_topk_fused(queries, codes, cb, k=5, tile=256, l2=True,
-                                  interpret=True, group=4)
-    np.testing.assert_array_equal(np.asarray(ti1), np.asarray(ti4))
-    np.testing.assert_array_equal(np.asarray(ts1), np.asarray(ts4))
-    # non-divisible group falls back to group=1 silently
-    s = pq_score_all(queries, codes, cb, tile=256, l2=True, interpret=True,
-                     group=3)
-    np.testing.assert_array_equal(np.asarray(s), np.asarray(base))
+@pytest.mark.parametrize("tile_rows", [256, 1000])
+def test_pq_scan_tiling_does_not_change_result(tile_rows):
+    """Ragged and even tilings give the single-tile result exactly."""
+    queries, codes, cb = _setup(n=2048, seed=5)
+    args = (jnp.asarray(queries), jnp.asarray(codes), jnp.asarray(cb))
+    s1, i1 = scan_codes_topk(*args, k=9, metric=Metric.L2, tile_rows=2048,
+                             use_bf16=False)
+    s2, i2 = scan_codes_topk(*args, k=9, metric=Metric.L2,
+                             tile_rows=tile_rows, use_bf16=False)
+    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
+    np.testing.assert_allclose(np.asarray(s1), np.asarray(s2), rtol=1e-6,
+                               atol=1e-5)
 
 
-def test_pallas_availability_gate():
-    # CPU backend → unavailable (compiled path requires TPU)
-    assert pallas_scan_available(64, 16, 16, 8, 8) is False
-    # VMEM budget rejection is independent of backend logic: a huge query
-    # batch would blow the 12 MB budget even on TPU
-    vmem_needed = 8192 * 4096 * 2
-    assert vmem_needed > 12 * 1024 * 1024  # sanity of the gate's math
-
-
-def test_pq_fused_large_k_merge_fold():
-    """k >= 32 routes the PQ kernel through fold_running_topk_merge —
-    scores AND ids must equal lax.top_k over the full score matrix
-    (same tie order), like the k<32 fused path."""
+def test_pq_scan_large_k_over_many_tiles():
+    """k=100 over 40 tiles takes the rolled running-merge loop."""
     queries, codes, cb = _setup(n=4096, seed=9)
-    for k in (32, 64, 100):
-        ts, ti = pq_scan_topk_fused(queries, codes, cb, k=k, tile=256,
-                                    l2=True, interpret=True)
-        s_full = pq_score_all(queries, codes, cb, tile=256, l2=True,
-                              interpret=True)
-        rs, ri = jax.lax.top_k(s_full, k)
-        np.testing.assert_allclose(np.asarray(ts), np.asarray(rs),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_array_equal(np.asarray(ti), np.asarray(ri))
+    s, i = scan_codes_topk(jnp.asarray(queries), jnp.asarray(codes),
+                           jnp.asarray(cb), k=100, metric=Metric.L2,
+                           tile_rows=104, use_bf16=False)
+    ref = _brute(queries, codes, cb, Metric.L2)
+    _check_topk(s, i, ref, 100, ascending=True)

@@ -1,5 +1,5 @@
-"""ShardedIvfPackedIndex: per-shard tile masks over the packed kernel on
-the 8-virtual-device CPU mesh, kernel in interpret mode.
+"""ShardedIvfPackedIndex: per-shard tile masks over the packed scan on
+the 8-virtual-device CPU mesh.
 
 Semantics under test (dist/sharded_ivf_packed.py): candidates are tiles
 overlapping the batch's probed clusters — per shard over its LOCAL tiles

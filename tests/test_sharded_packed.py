@@ -1,7 +1,6 @@
-"""Sharded packed-kernel serving (dist/sharded_packed.py) vs the
-single-device packed scan and the XLA sharded path — 8-virtual-device CPU
-mesh, kernel in interpret mode (compiled-mode equality is bench.py's
-on-chip assert)."""
+"""Sharded packed-scan serving (dist/sharded_packed.py) vs the
+single-device packed scan and the code-row sharded path — 8-virtual-device
+CPU mesh."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +15,7 @@ from vq_tpu.core.config import (
 from vq_tpu.dist.mesh import make_mesh
 from vq_tpu.dist.sharded_index import ShardedFlatIndex
 from vq_tpu.dist.sharded_packed import ShardedPackedFlatIndex
+from vq_tpu.kernels.adc import _finalize
 from vq_tpu.methods import rabitq as rb_mod
 from vq_tpu.methods import saq as saq_mod
 
@@ -23,11 +23,18 @@ from vq_tpu.methods import saq as saq_mod
 def _corpus(rng, n=2600, d=48, lognorm=True):
     x = (rng.standard_normal((n, d)) * (1.0 + np.arange(d))[::-1] ** 0.5
          ).astype(np.float32)
-    if lognorm:  # norm-heterogeneous rows so the prune stage can fire
+    if lognorm:  # norm-heterogeneous rows
         x *= np.exp(0.5 * rng.standard_normal((n, 1))).astype(np.float32)
     q = x[rng.integers(0, n, 12)] + 0.05 * rng.standard_normal(
         (12, d)).astype(np.float32)
     return x, q
+
+
+def _single_device(m, q, codes, k, metric, norms=None):
+    q = jnp.asarray(q, jnp.float32)
+    cache = m.prepare_tile_cache(codes, norms=norms)
+    s, i = m.packed_scan_raw(q, cache, k, metric, use_bf16=False)
+    return _finalize(s, i, metric, jnp.sum(q * q, axis=-1))
 
 
 @pytest.mark.parametrize("overlap_chunks", [1, 4])
@@ -46,11 +53,8 @@ def test_sharded_packed_saq_matches_single_device(overlap_chunks):
     ids, scores = idx.search_with_scores(q, k=8,
                                          overlap_chunks=overlap_chunks)
 
-    # single-device packed reference (sorted cache, perm-mapped ids)
-    s_ref, i_ref = saq_mod.scan_topk(
-        m.plan, m.params, jnp.asarray(q), codes, 8, Metric.L2,
-        use_bf16=False, use_packed=True, interpret=True,
-    )
+    # single-device packed reference
+    s_ref, i_ref = _single_device(m, q, codes, 8, Metric.L2)
     np.testing.assert_array_equal(ids, np.asarray(i_ref).astype(np.uint32))
     np.testing.assert_allclose(scores, np.asarray(s_ref), rtol=2e-4,
                                atol=2e-4)
@@ -85,10 +89,7 @@ def test_sharded_packed_rabitq():
         m, SearchConfig(metric=Metric.L2, use_bf16=False), mesh=make_mesh()
     ).fit(x)
     ids, scores = idx.search_with_scores(q, k=6)
-    s_ref, i_ref = rb_mod.scan_topk(
-        m.params, jnp.asarray(q), codes, 6, Metric.L2, 2,
-        use_bf16=False, use_packed=True, interpret=True,
-    )
+    s_ref, i_ref = _single_device(m, q, codes, 6, Metric.L2)
     np.testing.assert_array_equal(ids, np.asarray(i_ref).astype(np.uint32))
     np.testing.assert_allclose(scores, np.asarray(s_ref), rtol=2e-4,
                                atol=2e-4)
@@ -106,10 +107,7 @@ def test_sharded_packed_nip_metric():
         m, SearchConfig(metric=Metric.NIP, use_bf16=False), mesh=make_mesh()
     ).fit(x)
     ids, scores = idx.search_with_scores(q, k=6)
-    s_ref, i_ref = saq_mod.scan_topk(
-        m.plan, m.params, jnp.asarray(q), codes, 6, Metric.NIP, norms=norms,
-        use_bf16=False, use_packed=True, interpret=True,
-    )
+    s_ref, i_ref = _single_device(m, q, codes, 6, Metric.NIP, norms=norms)
     np.testing.assert_array_equal(ids, np.asarray(i_ref).astype(np.uint32))
     np.testing.assert_allclose(scores, np.asarray(s_ref), rtol=2e-4,
                                atol=2e-4)

@@ -1,6 +1,6 @@
-"""vq_tpu — a TPU-native vector-quantization engine and benchmarking framework.
+"""vq_tpu — a vector-quantization engine and benchmarking framework.
 
-Built from scratch in JAX/XLA/Pallas/pjit with the capabilities of the
+Built from scratch in JAX/XLA with the capabilities of the
 reference CPU framework ``Human-Augment-Analytics/vector-quantization``
 (see SURVEY.md): five quantization families (PQ, OPQ, SQ, SAQ, RaBitQ /
 Extended RaBitQ, plus LVQ / RankAware / FFD parity variants), flat and IVF
@@ -10,8 +10,8 @@ SQLite run logging, and multi-host corpus sharding over a `jax.sharding.Mesh`.
 
 Layout (SURVEY.md §7.1):
     core/     array types, packed-code layouts, dataclass configs
-    kernels/  TPU compute: batched k-means, ADC scan + top-k, Pallas kernels,
-              1-D Lloyd codebooks, CAQ encode
+    kernels/  device compute: batched k-means, ADC scan + top-k, the packed
+              per-dimension-code scan, 1-D Lloyd codebooks, CAQ encode
     methods/  the quantization schemes as pure functions over (params, X)
     index/    Flat and IVF search indexes
     dist/     mesh setup, corpus sharding, cross-shard top-k merge

@@ -8,7 +8,7 @@ vs exact GT + reconstruction MSE → DataFrame → timestamped CSV
 (benchmarks/quantizer_study.py:37-146).  This is the pipeline behind every
 CSV in the reference's results/ and the BASELINE.md study numbers.
 
-TPU-first: GT and the per-method search are ONE fused scan each
+GT and the per-method search are ONE fused scan each
 (kernels/adc.py) — the reference decompresses the whole corpus into a faiss
 flat index per method (exact_search.py:32-51); here codes stay in HBM and
 the decode happens inside the scan tiles.
@@ -138,18 +138,8 @@ def run_study_arrays(
             model = build_quantizer(base, d, **params)
             model.fit(x)
             codes = jnp.asarray(model.compress(x))
-            # packed scan cache (norm-ordered, real norms baked in): on a
-            # TPU backend the SAQ/RaBitQ/RankAware rows run the packed
-            # kernel with the NIP norm-envelope prune bound engaged
-            # (kernels/pallas_packed.py) — the same fused path serving
-            # uses; methods without a packed layout return None and take
-            # the XLA scan (reference exact_search.py:4-8 is always the
-            # dense path)
-            cache = model.prepare_scan(codes, norms=norms_d,
-                                       num_queries=len(queries))
             _, ids = model.scan_topk(
                 qd, codes, min(kmax, n), Metric.NIP, norms=norms_d,
-                cache=cache,
             )
             recalls = recall_at_ks(gt, np.asarray(ids), ks)
             sample = min(mse_sample, n)

@@ -68,7 +68,7 @@ class PQConfig:
 class OPQConfig:
     """Optimized PQ: learned rotation + PQ (reference
     methods/optimized_product_quantization.py:7-46, which wraps
-    faiss.OPQMatrix).  TPU-native: alternate PQ-fit ↔ Procrustes SVD.
+    faiss.OPQMatrix).  Alternates PQ-fit ↔ Procrustes SVD.
     """
 
     num_subquantizers: int = 8
@@ -172,21 +172,16 @@ class SearchConfig:
 
     metric: Metric = Metric.L2
     k: int = 10
-    # Rows per scan tile; large tiles amortize per-tile top-k cost (the
-    # dominant non-matmul cost on TPU) — few unrolled tiles beat many small
-    # ones.
+    # Rows per scan tile; large tiles amortize the per-tile top-k cost —
+    # few unrolled tiles beat many small ones.
     tile_rows: int = 16384
     # bf16 scoring with f32 accumulation (recall targets are tight at 8-bit,
     # SURVEY.md §7.3); flip to False for full-f32 scoring.
     use_bf16: bool = True
     # approx=True uses lax.approx_max_k for per-tile candidate selection
-    # (~2x faster scan at ≥0.99 within-tile recall; cross-tile merge stays
-    # exact).  Default False: fully exact ranking.
+    # (recall_target 0.99; the cross-tile merge stays exact).  Default
+    # False: fully exact ranking.
     approx: bool = False
-    # Expected query-batch size for prepare_scan's VMEM availability gate
-    # (the packed-kernel cache is built iff a batch of this size fits; larger
-    # live batches fall back to the XLA scan with the cache unused).
-    prepare_queries: int = 8
 
 
 def asdict(cfg) -> dict:

@@ -6,7 +6,7 @@ inside one byte (b_d ≤ 8), placed by FFD with the "4-fix" (width-4 fields
 inserted after the width-3 fields so a lone 4 can't break the 3s' packing —
 the reference verified this exhaustively optimal for cap 8).
 
-TPU-native encode/decode: non-overlapping fields make bitwise-OR equal to
+Vectorized encode/decode: non-overlapping fields make bitwise-OR equal to
 addition, so packing is `(codes << shift) @ Assign` — one small integer
 matmul with a static (D, n_bytes) 0/1 assignment matrix — and unpacking is
 a byte gather (static indices) + shift/mask on the VPU.  No per-dim loops

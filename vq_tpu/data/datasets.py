@@ -1,7 +1,7 @@
 """Dataset container and loaders.
 
 Parity with the reference's data layer (src/haag_vq/data/datasets.py:36-105,
-dbpedia_loader.py, cohere_msmarco_loader.py) with a TPU-first ground-truth
+dbpedia_loader.py, cohere_msmarco_loader.py) with an on-device ground-truth
 path: GT is the exact-scan kernel (kernels/adc.py `exact_topk`) instead of a
 faiss IndexFlat (reference data/datasets.py:8-34,
 benchmarks/precompute_ground_truth.py:14-129).
@@ -112,8 +112,8 @@ def load_planted_dataset(
     This is the structure real embedding sets have, and the regime where
     the reference's dbpedia-level recall targets (~0.8 at 1 bit/dim) are
     actually reachable — iid gaussians at D≳1000 have no usable neighbor
-    structure (bench.py recall_gate_pq192 docstring; real datasets are
-    egress-blocked in this environment, BENCH_NOTES.md).  Generated on
+    structure (bench.py recall_gate_pq192 docstring; real datasets need a
+    download).  Generated on
     device; bit-stable for a given (shape, seed)."""
     import jax.random as jrandom
 

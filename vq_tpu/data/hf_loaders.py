@@ -6,7 +6,7 @@ API parity with the reference's loaders (SURVEY.md §2.1 P32-P34):
 
 Each streams the HF dataset into a pre-allocated float32 array (the
 reference's pattern, dbpedia_loader.py:190-218).  `datasets` is not baked
-into this image, so everything is behind a soft import; at TPU-pod scale
+into this image, so everything is behind a soft import; at multi-host scale
 the intended path is pre-materializing per-host .npy/.fvecs shards with
 scripts/prep_dataset.py and mmap-ing them (SURVEY.md §7.3 "53M ingestion").
 """

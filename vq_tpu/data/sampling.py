@@ -1,7 +1,7 @@
 """Host-side subsampling and chunked statistics for pod-scale fits.
 
 Round-1 fits did `jnp.asarray(X)` on the FULL corpus and then subsampled on
-device — a 217 GB HBM transfer at the 53M×1024-d target (VERDICT weak #3).
+device — a 217 GB HBM transfer at the 53M×1024-d target.
 Every fit path now calls `host_sample_rows` first: numpy / np.memmap /
 array-like corpora are sampled on the host (sorted indices keep mmap reads
 sequential) and only the ≤cap sample is transferred; jax arrays that are

@@ -1,12 +1,13 @@
 """Device-mesh setup and sharding helpers.
 
 The reference has no distributed backend at all (SURVEY.md §2.3: scale-out is
-Slurm jobs + OpenMP); the TPU-native equivalent is a 1-D `jax.sharding.Mesh`
-over all chips with the corpus sharded along N ("tensor-sharded corpus",
-BASELINE.json north star), codebooks/queries replicated, and XLA collectives
-for the top-k merge.  On multi-host pods `jax.distributed.initialize()` is
-called first; on a single chip every sharding is a no-op (same kernels at toy
-and pod scale, SURVEY.md §4.3).
+Slurm jobs + OpenMP); here it is a 1-D `jax.sharding.Mesh` over all devices
+with the corpus sharded along N ("tensor-sharded corpus", BASELINE.json north
+star), codebooks/queries replicated, and XLA collectives for the top-k merge.
+The cards of one host are joined all to all, so the mesh follows the
+algorithm alone.  Multi-process runs call `jax.distributed.initialize()`
+first; on a single device every sharding is a no-op (same code at toy and
+full scale, SURVEY.md §4.3).
 """
 
 from __future__ import annotations
@@ -21,14 +22,13 @@ DATA_AXIS = "data"
 
 
 def maybe_init_distributed() -> None:
-    """Initialize the multi-host runtime if launched under a pod scheduler."""
+    """Initialize the multi-process runtime when VQ_DIST_INIT is set.  A
+    failure raises: a run asked to be distributed must not go on as a
+    single process."""
     import os
 
     if os.environ.get("VQ_DIST_INIT") and jax.process_count() == 1:
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            pass  # single-process run
+        jax.distributed.initialize()
 
 
 def make_mesh(

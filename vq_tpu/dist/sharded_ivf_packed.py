@@ -1,8 +1,7 @@
-"""Sharded probed-tile IVF: per-shard tile masks over the packed kernel.
+"""Sharded probed-tile IVF: per-shard tile masks over the packed scan.
 
-Round-5 completion of the IVF serving story across the mesh: the
-single-chip IvfPackedFlatIndex (index/ivf_packed.py) restricts the packed
-Pallas scan to tiles overlapping the batch's probed clusters — here the
+The single-device IvfPackedFlatIndex (index/ivf_packed.py) restricts the
+packed scan to tiles overlapping the batch's probed clusters — here the
 cluster-sorted corpus is split into contiguous row blocks over the mesh
 and EACH SHARD masks its own local tiles:
 
@@ -12,22 +11,22 @@ and EACH SHARD masks its own local tiles:
            IvfPackedFlatIndex recipe), split into equal per-shard blocks
            (global tail padded), per-shard ORDER-PRESERVING packed caches
            (prepare_tile_cache), per-shard per-tile cluster ranges.
-  search — coarse routing is replicated math (one (Q, K) MXU matmul per
+  search — coarse routing is replicated math (one (Q, K) matmul per
            shard); each shard turns the batch's probed set into a mask
            over its LOCAL tiles (per-cluster prefix sums) and runs the
-           tile-GATHER masked kernel (masked-out tiles skip DMA —
-           kernels/pallas_packed.py) with a num_valid prefix limit for
-           the global pad tail; per-shard (Q, k) candidates all_gather-
-           merge exactly.
+           tile-masked packed scan (masked-out tiles are never read —
+           kernels/packed.py) with a num_valid prefix limit for the global
+           pad tail; per-shard (Q, k) candidates all_gather-merge
+           exactly.
 
 Semantics match IvfPackedFlatIndex (tile-overlap candidate superset,
 flat packed scores); on one device the sharding is a no-op and results
 equal the single-device probed-tile scan (tests/test_sharded_ivf_packed
-asserts equality on the 8-virtual-device CPU mesh in interpret mode).
+asserts equality on the 8-virtual-device CPU mesh).
 Reference contrast: the engine's IVF shards by list assignment with
 per-cluster heap scans (external/saq/include/index/ivf_index.h:249-266);
-here probing is a grid-step predicate per shard and the merge is one
-tiled all_gather.
+here probing is a tile predicate per shard and the merge is one tiled
+all_gather.
 """
 
 from __future__ import annotations
@@ -48,10 +47,8 @@ from vq_tpu.index.ivf import chunked_assign, encode_rows_ordered
 from vq_tpu.index.ivf_packed import default_mask_cap, tile_mask_from_probes
 from vq_tpu.kernels.adc import _bf16_supported, _finalize
 from vq_tpu.kernels.kmeans import kmeans, pairwise_sqdist_xc
-from vq_tpu.kernels.pallas_packed import PackedCorpus
+from vq_tpu.kernels.packed import _TILE, PackedCorpus
 from vq_tpu.methods.base import BaseQuantizer
-
-_TILE = 512
 
 
 class ShardedIvfPackedIndex(BaseSearchIndex):
@@ -75,12 +72,10 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
         self._n_loc = 0
         self._words = None  # tuple of (P, n_loc/u_s, ln_s) sharded leaves
         self._factors = None  # (P, n_loc, F) sharded
-        self._stats = None  # (P, n_loc/512, 5) sharded or None
         self._ids = None  # (P, n_loc) sharded: local pos → global row id
         self._cl_first = None  # (P, n_loc/512) sharded
         self._cl_last = None  # (P, n_loc/512)
         self._has_norms = False
-        self._prune_hint = False
         self._search_cache = {}
 
     @property
@@ -134,16 +129,13 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
         for p in range(p_cnt):
             sl = slice(p * n_loc, (p + 1) * n_loc)
             cache = self.quantizer.prepare_tile_cache(
-                jnp.asarray(codes_p[sl]),
-                norms=jnp.asarray(norms_p[sl]),
-                num_queries=self.search_cfg.prepare_queries,
+                jnp.asarray(codes_p[sl]), norms=jnp.asarray(norms_p[sl]),
             )
             if cache is None:
                 raise RuntimeError(
-                    f"{self.quantizer.name} has no packed tile cache at "
-                    "this geometry — use dist.sharded_ivf.ShardedIVFIndex"
+                    f"{self.quantizer.name} has no packed layout — use "
+                    "dist.sharded_ivf.ShardedIVFIndex"
                 )
-            assert cache.perm is None
             caches.append(cache)
 
         s_cnt = len(caches[0].words)
@@ -153,10 +145,6 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
         )
         self._factors = shard_rows(
             self.mesh, jnp.stack([c.factors for c in caches])
-        )
-        self._stats = (
-            shard_rows(self.mesh, jnp.stack([c.tile_stats for c in caches]))
-            if caches[0].tile_stats is not None else None
         )
         self._ids = shard_rows(
             self.mesh, jnp.asarray(ids_p.reshape(p_cnt, n_loc))
@@ -171,14 +159,13 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
             self.mesh, jnp.asarray(lasts.reshape(p_cnt, nb_loc).astype(np.int32))
         )
         self._has_norms = caches[0].has_norms
-        self._prune_hint = any(c.prune_hint for c in caches)
         self.num_rows = n
         self._n_loc = n_loc
         self._search_cache = {}
         return self
 
     # --------------------------------------------------------------- search
-    def _build_search_fn(self, k: int, nprobe: int, interp: bool):
+    def _build_search_fn(self, k: int, nprobe: int):
         metric = self.search_cfg.metric
         quantizer = self.quantizer
         centroids = self.centroids
@@ -188,11 +175,10 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
         true_n = self.num_rows
         s_cnt = len(self._words)
         has_norms = self._has_norms
-        prune_hint = self._prune_hint
         use_bf16 = self.search_cfg.use_bf16 and _bf16_supported()
         mask_cap = default_mask_cap(nb_loc, nprobe, true_n, k_cl)
 
-        def local(q, fac, stats, ids_l, cl_f, cl_l, *words):
+        def local(q, fac, ids_l, cl_f, cl_l, *words):
             p = jax.lax.axis_index(DATA_AXIS)
             q = q.astype(jnp.float32)
             valid = jnp.clip(true_n - p * n_loc, 0, n_loc)
@@ -201,13 +187,11 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
             mask = tile_mask_from_probes(probe, cl_f[0], cl_l[0], k_cl)
             sub = PackedCorpus(
                 words=tuple(w[0] for w in words), factors=fac[0],
-                num_rows=n_loc,
-                tile_stats=stats[0] if stats is not None else None,
-                has_norms=has_norms, perm=None, prune_hint=prune_hint,
+                num_rows=n_loc, has_norms=has_norms,
             )
             s, pos = quantizer.packed_scan_raw(
                 q, sub, k, metric, num_valid=valid, use_bf16=use_bf16,
-                interpret=interp, tile_mask=mask, mask_cap=mask_cap,
+                tile_mask=mask, mask_cap=mask_cap,
             )
             gid = jnp.take(ids_l[0], jnp.clip(pos, 0, n_loc - 1))
             s = jnp.where(gid < 0, -jnp.inf, s)  # pad rows never surface
@@ -216,21 +200,11 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
             return _merge_local_topk(s_nat, gid, k, metric)
 
         in_specs = [P(None, None), P(DATA_AXIS, None, None)]
-        if self._stats is not None:
-            in_specs.append(P(DATA_AXIS, None, None))
         in_specs += [P(DATA_AXIS, None), P(DATA_AXIS, None),
                      P(DATA_AXIS, None)]
         in_specs += [P(DATA_AXIS, None, None)] * s_cnt
-
-        if self._stats is not None:
-            def wrapped(q, fac, stats, ids_l, cl_f, cl_l, *words):
-                return local(q, fac, stats, ids_l, cl_f, cl_l, *words)
-        else:
-            def wrapped(q, fac, ids_l, cl_f, cl_l, *words):
-                return local(q, fac, None, ids_l, cl_f, cl_l, *words)
-
         fn = shard_map(
-            wrapped, mesh=self.mesh, in_specs=tuple(in_specs),
+            local, mesh=self.mesh, in_specs=tuple(in_specs),
             out_specs=(P(None, None), P(None, None)),
         )
         return jax.jit(fn)
@@ -239,14 +213,11 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
         self, queries: np.ndarray, k: int = 10
     ) -> Tuple[np.ndarray, np.ndarray]:
         nprobe = min(self.ivf_cfg.nprobe, int(self.centroids.shape[0]))
-        interp = jax.default_backend() != "tpu"
-        key = (k, nprobe, interp)
+        key = (k, nprobe)
         if key not in self._search_cache:
-            self._search_cache[key] = self._build_search_fn(k, nprobe, interp)
+            self._search_cache[key] = self._build_search_fn(k, nprobe)
         q = replicate(self.mesh, jnp.asarray(queries, jnp.float32))
         args = [q, self._factors]
-        if self._stats is not None:
-            args.append(self._stats)
         args += [self._ids, self._cl_first, self._cl_last]
         args += list(self._words)
         scores, ids = self._search_cache[key](*args)
@@ -257,7 +228,7 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
     def memory_footprint(self) -> int:
         total = 0
         leaves = list(self._words or ()) + [
-            self._factors, self._stats, self._ids, self._cl_first,
+            self._factors, self._ids, self._cl_first,
             self._cl_last, self.centroids,
         ]
         for a in leaves:
@@ -285,13 +256,10 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
             "centroids": np.asarray(self.centroids),
             "words": [np.asarray(w) for w in self._words],
             "factors": np.asarray(self._factors),
-            "stats": (np.asarray(self._stats)
-                      if self._stats is not None else None),
             "ids": np.asarray(self._ids),
             "cl_first": np.asarray(self._cl_first),
             "cl_last": np.asarray(self._cl_last),
             "has_norms": self._has_norms,
-            "prune_hint": self._prune_hint,
         }
 
     def _restore(self, state: dict) -> None:
@@ -312,13 +280,8 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
             shard_rows(self.mesh, jnp.asarray(w)) for w in state["words"]
         )
         self._factors = shard_rows(self.mesh, jnp.asarray(state["factors"]))
-        self._stats = (
-            shard_rows(self.mesh, jnp.asarray(state["stats"]))
-            if state["stats"] is not None else None
-        )
         self._ids = shard_rows(self.mesh, jnp.asarray(state["ids"]))
         self._cl_first = shard_rows(self.mesh, jnp.asarray(state["cl_first"]))
         self._cl_last = shard_rows(self.mesh, jnp.asarray(state["cl_last"]))
         self._has_norms = state["has_norms"]
-        self._prune_hint = state["prune_hint"]
         self._search_cache = {}

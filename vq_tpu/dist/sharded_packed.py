@@ -1,25 +1,20 @@
-"""Sharded serving through the packed Pallas kernel.
+"""Sharded serving through the packed scan (kernels/packed.py).
 
-The round-3 gap (VERDICT weak #3): ShardedFlatIndex routed every non-PQ
-method through the XLA decode_fn scan, measured 2.6–6.2× slower than the
-packed kernel (BENCH_NOTES crossover table) — multi-chip SAQ/RaBitQ serving
-ran at fallback speed.  Here the PackedCorpus itself is sharded:
+The PackedCorpus itself is sharded:
 
   fit    — rows are split into equal per-shard blocks (padded at the global
-           tail) and EACH SHARD builds its own packed cache from its local
-           rows via quantizer.prepare_shard_cache.  SAQ norm-orders each
-           shard locally, which sidesteps the sort_rows/num_valid conflict:
-           pad rows sort to the local tail (prepare_packed num_valid_rows)
-           and a local prefix limit masks them exactly.
-  search — the packed kernel (methods/*.packed_scan_raw) runs per shard
+           tail) and EACH SHARD builds its own order-preserving packed
+           cache from its local rows via quantizer.prepare_tile_cache; a
+           local prefix limit masks the pad rows.
+  search — the packed scan (methods/*.packed_scan_raw) runs per shard
            under shard_map; per-shard (Q, k) candidates all_gather-merge
            exactly, optionally per-chunk so XLA's async collectives hide
-           each small gather behind the next chunk's MXU work
-           (overlap_chunks — the dist/sharded.py overlapped-merge pattern).
+           each small gather behind the next chunk's scan (overlap_chunks —
+           the dist/sharded.py overlapped-merge pattern).
 
 On one device the sharding is a no-op and results equal the single-device
-packed scan (tests/test_sharded_packed.py asserts equality on the 8-virtual-
-device CPU mesh in interpret mode).
+packed scan (tests/test_sharded_packed.py asserts equality on the
+8-virtual-device CPU mesh).
 """
 
 from __future__ import annotations
@@ -38,12 +33,12 @@ from vq_tpu.dist.sharded import shard_map
 from vq_tpu.index.base import BaseSearchIndex, nbytes_of
 from vq_tpu.index.ivf import encode_rows_ordered
 from vq_tpu.kernels.adc import _bf16_supported, _finalize
-from vq_tpu.kernels.pallas_packed import PackedCorpus
+from vq_tpu.kernels.packed import _TILE, PackedCorpus
 from vq_tpu.methods.base import BaseQuantizer
 
 
 class ShardedPackedFlatIndex(BaseSearchIndex):
-    """Flat index serving SAQ/RaBitQ/RankAware through the packed kernel
+    """Flat index serving SAQ/RaBitQ/RankAware through the packed scan
     with the corpus row-sharded over the mesh."""
 
     name = "sharded_packed_flat"
@@ -61,10 +56,7 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
         self._n_loc = 0
         self._words = None  # tuple of (P, n_loc/u_s, ln_s) sharded leaves
         self._factors = None  # (P, n_loc, F) sharded
-        self._stats = None  # (P, n_loc/512, 3) sharded or None
-        self._perm = None  # (P, n_loc) sharded (identity when unsorted)
         self._has_norms = False
-        self._prune_hint = False
         self._search_cache = {}
 
     @property
@@ -88,7 +80,7 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
 
     def _install(self, codes: np.ndarray, norms: np.ndarray, n: int) -> None:
         p_cnt = self.num_shards
-        blk = p_cnt * 512
+        blk = p_cnt * _TILE
         n_pad = -(-n // blk) * blk
         n_loc = n_pad // p_cnt
         codes_p = np.pad(codes, ((0, n_pad - n),) + ((0, 0),) * (codes.ndim - 1))
@@ -97,18 +89,13 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
         caches = []
         for p in range(p_cnt):
             sl = slice(p * n_loc, (p + 1) * n_loc)
-            valid_p = int(np.clip(n - p * n_loc, 0, n_loc))
-            cache = self.quantizer.prepare_shard_cache(
-                jnp.asarray(codes_p[sl]),
-                norms=jnp.asarray(norms_p[sl]),
-                num_queries=self.search_cfg.prepare_queries,
-                num_valid_rows=valid_p,
+            cache = self.quantizer.prepare_tile_cache(
+                jnp.asarray(codes_p[sl]), norms=jnp.asarray(norms_p[sl]),
             )
             if cache is None:
                 raise RuntimeError(
-                    f"{self.quantizer.name} has no packed shard cache at this "
-                    "geometry — serve it with dist.sharded_index."
-                    "ShardedFlatIndex (XLA decode_fn scan) instead"
+                    f"{self.quantizer.name} has no packed layout — serve it "
+                    "with dist.sharded_index.ShardedFlatIndex instead"
                 )
             caches.append(cache)
 
@@ -120,61 +107,34 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
         self._factors = shard_rows(
             self.mesh, jnp.stack([c.factors for c in caches])
         )
-        self._stats = (
-            shard_rows(self.mesh, jnp.stack([c.tile_stats for c in caches]))
-            if caches[0].tile_stats is not None
-            else None
-        )
-        # identity perm when the builder didn't sort (one shard_map program
-        # for both layouts)
-        self._perm = shard_rows(
-            self.mesh,
-            jnp.stack([
-                c.perm if c.perm is not None
-                else jnp.arange(n_loc, dtype=jnp.int32)
-                for c in caches
-            ]),
-        )
         self._has_norms = caches[0].has_norms
-        # one program serves all shards: prune iff ANY shard's stats are
-        # heterogeneous (the stage is ≤7.5% overhead where it cannot win)
-        self._prune_hint = any(c.prune_hint for c in caches)
         self.num_rows = n
         self._n_loc = n_loc
         self._search_cache = {}
 
     # --------------------------------------------------------------- search
-    def _build_search_fn(self, k: int, overlap_chunks: int, interp: bool):
+    def _build_search_fn(self, k: int, overlap_chunks: int):
         metric = self.search_cfg.metric
         quantizer = self.quantizer
         n_loc = self._n_loc
         true_n = self.num_rows
         s_cnt = len(self._words)
         has_norms = self._has_norms
-        prune_hint = self._prune_hint
         use_bf16 = self.search_cfg.use_bf16 and _bf16_supported()
         u_s = tuple(n_loc // int(w.shape[1]) for w in self._words)
-        chunks = max(1, min(overlap_chunks, n_loc // 512))
-        while (n_loc // 512) % chunks:
+        chunks = max(1, min(overlap_chunks, n_loc // _TILE))
+        while (n_loc // _TILE) % chunks:
             chunks -= 1
         csz = n_loc // chunks
 
-        def local(q, fac, stats, perm, *words):
+        def local(q, fac, *words):
             p = jax.lax.axis_index(DATA_AXIS)
             valid = jnp.clip(true_n - p * n_loc, 0, n_loc)
-            fac, perm = fac[0], perm[0]
-            stats_l = stats[0] if stats is not None else None
+            fac = fac[0]
             words_l = [w[0] for w in words]
 
             def scan_chunk(c):
                 fac_c = jax.lax.dynamic_slice_in_dim(fac, c * csz, csz, 0)
-                stats_c = (
-                    jax.lax.dynamic_slice_in_dim(
-                        stats_l, c * (csz // 512), csz // 512, 0
-                    )
-                    if stats_l is not None
-                    else None
-                )
                 words_c = tuple(
                     jax.lax.dynamic_slice_in_dim(
                         w, c * (csz // u), csz // u, 0
@@ -183,16 +143,13 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
                 )
                 sub = PackedCorpus(
                     words=words_c, factors=fac_c, num_rows=csz,
-                    tile_stats=stats_c, has_norms=has_norms, perm=None,
-                    prune_hint=prune_hint,
+                    has_norms=has_norms,
                 )
                 nv = jnp.clip(valid - c * csz, 0, csz)
                 s, pos = quantizer.packed_scan_raw(
                     q, sub, k, metric, num_valid=nv, use_bf16=use_bf16,
-                    interpret=interp,
                 )
-                ids_loc = jnp.take(perm, pos + c * csz)
-                gid = ids_loc + p * n_loc
+                gid = pos + c * csz + p * n_loc
                 s = jnp.where(gid >= true_n, -jnp.inf, s)
                 return s, gid
 
@@ -202,7 +159,7 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
             # python-unrolled chunk loop: the per-chunk rotated-query work
             # is loop-invariant (CSE'd), and chunk c+1's scan does not
             # depend on chunk c's merge — XLA's async collectives hide
-            # each (Q, P·k) gather behind the next chunk's MXU work
+            # each (Q, P·k) gather behind the next chunk's scan
             for c in range(chunks):
                 s, gid = scan_chunk(c)
                 g_s = jax.lax.all_gather(s, DATA_AXIS, axis=1, tiled=True)
@@ -214,24 +171,10 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
             q_sq = jnp.sum(q.astype(jnp.float32) ** 2, axis=-1)
             return _finalize(run_s, run_i, metric, q_sq)
 
-        stats_spec = (
-            P(DATA_AXIS, None, None) if self._stats is not None else None
-        )
         in_specs = [P(None, None), P(DATA_AXIS, None, None)]
-        if stats_spec is not None:
-            in_specs.append(stats_spec)
-        in_specs.append(P(DATA_AXIS, None))
         in_specs += [P(DATA_AXIS, None, None)] * s_cnt
-
-        if self._stats is not None:
-            def wrapped(q, fac, stats, perm, *words):
-                return local(q, fac, stats, perm, *words)
-        else:
-            def wrapped(q, fac, perm, *words):
-                return local(q, fac, None, perm, *words)
-
         fn = shard_map(
-            wrapped,
+            local,
             mesh=self.mesh,
             in_specs=tuple(in_specs),
             out_specs=(P(None, None), P(None, None)),
@@ -241,28 +184,18 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
     def search_with_scores(
         self, queries: np.ndarray, k: int = 10, overlap_chunks: int = 1
     ) -> Tuple[np.ndarray, np.ndarray]:
-        interp = jax.default_backend() != "tpu"
-        key = (k, overlap_chunks, interp)
+        key = (k, overlap_chunks)
         if key not in self._search_cache:
-            self._search_cache[key] = self._build_search_fn(
-                k, overlap_chunks, interp
-            )
+            self._search_cache[key] = self._build_search_fn(k, overlap_chunks)
         q = replicate(self.mesh, jnp.asarray(queries, jnp.float32))
-        args = [q, self._factors]
-        if self._stats is not None:
-            args.append(self._stats)
-        args.append(self._perm)
-        args += list(self._words)
-        scores, ids = self._search_cache[key](*args)
+        scores, ids = self._search_cache[key](q, self._factors, *self._words)
         ids = np.asarray(ids)
         return np.where(ids < 0, 0, ids).astype(np.uint32), np.asarray(scores)
 
     # ---------------------------------------------------------------- misc
     def memory_footprint(self) -> int:
         total = 0
-        leaves = list(self._words or ()) + [
-            self._factors, self._stats, self._perm
-        ]
+        leaves = list(self._words or ()) + [self._factors]
         for a in leaves:
             if a is not None:
                 total += nbytes_of(a)
@@ -278,11 +211,11 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
     # ------------------------------------------------------------ save/load
     def _state(self) -> dict:
         """Persist the stacked (P, …) per-shard cache leaves (np.asarray
-        gathers a sharded array).  The per-shard layout (local norm order,
-        local pad tails) is baked into the leaves, so a load re-shards the
-        SAME split — the restoring mesh must have the same device count
-        (re-splitting P shards over P' devices would break each shard's
-        local perm/num_valid layout; refit for a different mesh).
+        gathers a sharded array).  The per-shard layout (local pad tails)
+        is baked into the leaves, so a load re-shards the SAME split — the
+        restoring mesh must have the same device count (re-splitting P
+        shards over P' devices would break each shard's num_valid layout;
+        refit for a different mesh).
         Reference: base_search_index.py:21-89 persists every index."""
         import pickle
 
@@ -294,11 +227,7 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
             "num_shards": self.num_shards,
             "words": [np.asarray(w) for w in self._words],
             "factors": np.asarray(self._factors),
-            "stats": (np.asarray(self._stats)
-                      if self._stats is not None else None),
-            "perm": np.asarray(self._perm),
             "has_norms": self._has_norms,
-            "prune_hint": self._prune_hint,
         }
 
     def _restore(self, state: dict) -> None:
@@ -318,11 +247,5 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
             shard_rows(self.mesh, jnp.asarray(w)) for w in state["words"]
         )
         self._factors = shard_rows(self.mesh, jnp.asarray(state["factors"]))
-        self._stats = (
-            shard_rows(self.mesh, jnp.asarray(state["stats"]))
-            if state["stats"] is not None else None
-        )
-        self._perm = shard_rows(self.mesh, jnp.asarray(state["perm"]))
         self._has_norms = state["has_norms"]
-        self._prune_hint = state["prune_hint"]
         self._search_cache = {}

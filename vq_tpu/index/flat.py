@@ -5,7 +5,7 @@ Parity with the reference's FlatQuantizedIndex
 decompresses the whole corpus and brute-force scans with scipy cdist.  Here
 the corpus stays compressed in HBM and search is the fused
 decode→score→top-k ADC scan (kernels/adc.py) — codes are the only per-row
-HBM traffic and the scoring runs on the MXU.
+device-memory traffic and the scoring is one matmul per tile.
 
 Keeps the original row norms as a 4 B/vec side-channel to support the study
 pipeline's normalized-IP metric (reference benchmarks/quantizer_adapters.py:17
@@ -46,12 +46,6 @@ class FlatQuantizedIndex(BaseSearchIndex):
         self.codes = jnp.asarray(self.quantizer.compress(X))
         self.norms = jnp.linalg.norm(xd, axis=-1)
         self.num_rows = X.shape[0]
-        # scan-optimized layout (kernels/pallas_packed.py PackedCorpus) —
-        # built once here so the hot search path never re-parses byte rows
-        self._scan_cache = self.quantizer.prepare_scan(
-            self.codes, norms=self.norms,
-            num_queries=getattr(self.search_cfg, "prepare_queries", 8),
-        )
         return self
 
     def search_with_scores(
@@ -66,7 +60,6 @@ class FlatQuantizedIndex(BaseSearchIndex):
             tile_rows=self.search_cfg.tile_rows,
             use_bf16=self.search_cfg.use_bf16,
             approx=self.search_cfg.approx,
-            cache=getattr(self, "_scan_cache", None),
         )
         return np.asarray(idx).astype(np.uint32), np.asarray(scores)
 
@@ -86,7 +79,7 @@ class FlatQuantizedIndex(BaseSearchIndex):
 
         # Pickle the WHOLE quantizer (as IvfQuantizedIndex does): SAQ's plan
         # and RankAware's bits/layout live outside `params`, and a params-only
-        # snapshot made load() crash in prepare_scan for those methods.
+        # snapshot could not restore those methods.
         return {
             "codes": np.asarray(self.codes),
             "norms": np.asarray(self.norms),
@@ -103,7 +96,3 @@ class FlatQuantizedIndex(BaseSearchIndex):
         self.norms = jnp.asarray(state["norms"])
         self.num_rows = state["num_rows"]
         self.search_cfg = state["search_cfg"]
-        self._scan_cache = self.quantizer.prepare_scan(
-            self.codes, norms=self.norms,
-            num_queries=getattr(self.search_cfg, "prepare_queries", 8),
-        )

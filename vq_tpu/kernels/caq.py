@@ -1,4 +1,4 @@
-"""CAQ encoder — batched, TPU-native.
+"""CAQ encoder — batched.
 
 Re-design of the SAQ engine's CAQEncoder
 (external/saq/include/saq/caq_encoder.h:58-220):
@@ -41,10 +41,8 @@ class CAQCode(NamedTuple):
     # fac_error = ‖o‖²·ε·sqrt((‖o‖²‖ô‖²/⟨o,ô⟩² − 1)/(D−1)), giving
     # |⟨q,o⟩ − rescale·⟨q,ô⟩| ≤ fac_error·‖q‖/‖o‖.  The byte-row format
     # stores only (rescale, o_l2norm) — 2 floats/segment, the engine's
-    # layout — and methods/saq.prepare_packed RECONSTRUCTS this bound from
-    # them (⟨o,r̂⟩=‖o‖² ⟹ cos²=‖o‖²/‖r̂‖²) as the variance-prune stage's
-    # keep-margin (kernels/pallas_packed.py module docstring).  This field
-    # is the encoder-side value, used by tests to validate the bound.
+    # layout.  This field is the encoder-side value, used by tests to
+    # validate the bound.
     fac_error: jax.Array  # (N,)
 
 

@@ -1,4 +1,4 @@
-"""Batched Lloyd k-means, TPU-native.
+"""Batched Lloyd k-means.
 
 Replaces every place the reference calls faiss k-means: PQ subquantizer
 training (reference methods/product_quantization.py:67-68), IVF coarse
@@ -6,7 +6,7 @@ quantizers (methods/search/ivf_quantized_index.py:45-84,
 methods/search/saq_index.py:14-23), and the SAQ engine's preprocessing
 (external/saq/src/preprocessing/kmeans_faiss.cpp).
 
-Design (SURVEY.md §7.1): assignment is an MXU matmul-argmin
+Design (SURVEY.md §7.1): assignment is a matmul-argmin
 (‖x‖² − 2x·c + ‖c‖²), the centroid update is a one-hot ⊤-matmul
 segment-sum — both tile straight onto the 128×128 systolic array.  The
 whole Lloyd loop is a `lax.fori_loop` under one `jit`; k-means++ init is a
@@ -26,7 +26,7 @@ from vq_tpu.core.config import KMeansConfig
 
 
 def pairwise_sqdist_xc(x: jax.Array, c: jax.Array) -> jax.Array:
-    """Squared euclidean distances (n, d) × (k, d) → (n, k), MXU-friendly."""
+    """Squared euclidean distances (n, d) × (k, d) → (n, k), as one matmul."""
     x2 = jnp.sum(x * x, axis=-1, keepdims=True)
     c2 = jnp.sum(c * c, axis=-1)
     xc = jnp.dot(x, c.T, preferred_element_type=jnp.float32,
@@ -166,7 +166,7 @@ def kmeans_batched(
     """Train M independent k-means problems at once: (M, n, d) → (M, k, d).
 
     This is how all PQ subquantizers train in one compiled program — the
-    TPU-native replacement for faiss's per-subspace sequential training
+    Batched replacement for faiss's per-subspace sequential training
     loop (reference methods/product_quantization.py:67-68).
     """
     m = xs.shape[0]

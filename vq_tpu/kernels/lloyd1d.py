@@ -1,4 +1,4 @@
-"""1-D scalar codebook builders (Lloyd on sorted samples), TPU/XLA-native.
+"""1-D scalar codebook builders (Lloyd on sorted samples), in XLA.
 
 Replaces the reference's 1-D codebook machinery: `_lloyd_1d_normal`
 (methods/extended_rabitq.py:6-44, rank_aware_quantization.py) and the SAQ
@@ -69,7 +69,7 @@ def lloyd_1d_normal(
 def lloyd_1d_columns(x: jax.Array, num_levels: int, iters: int = 60) -> jax.Array:
     """Per-dimension codebooks for all columns at once: (n, D) → (D, L).
 
-    The TPU equivalent of the SAQ engine's `build_all_dims` OpenMP loop
+    The vectorized equivalent of the SAQ engine's `build_all_dims` OpenMP loop
     (codebook_builder.h:70-78)."""
     xs = jnp.sort(x, axis=0).T  # (D, n) sorted per column
     return jax.vmap(lambda col: lloyd_1d_sorted(col, num_levels, iters))(xs)

@@ -77,13 +77,10 @@ class BaseQuantizer:
         tile_rows: int = 16384,
         use_bf16: bool = True,
         approx: bool = False,
-        cache=None,
         num_valid=None,
     ):
         """Fused ADC search over this method's codes (device arrays in/out).
-
-        `cache` is the opaque value returned by prepare_scan (ignored by the
-        generic path); `num_valid` masks rows with id ≥ num_valid."""
+        `num_valid` masks rows with id ≥ num_valid."""
         from vq_tpu.kernels.adc import scan_generic_topk
 
         return scan_generic_topk(
@@ -91,53 +88,26 @@ class BaseQuantizer:
             use_bf16, approx=approx, num_valid=num_valid,
         )
 
-    def prepare_scan(self, codes, norms=None, num_queries=8):
-        """Optionally build a scan-optimized corpus layout (e.g. the packed
-        bitplane words of kernels/pallas_packed.py).  Indexes call this once
-        at fit and pass the result back via scan_topk(cache=...); the default
-        None means "scan the stored rows directly".
-
-        num_queries — the query-batch size the VMEM availability gate models
-        (kernel VMEM scales with resident queries).  If searches later arrive
-        with much larger batches than the cache was gated for, the packed
-        path may fall back to the XLA scan and the cache sits unused in HBM;
-        size the hint to the serving batch (SearchConfig.prepare_queries)."""
-        return None
-
-    def prepare_shard_cache(self, codes, norms=None, num_queries=8,
-                            num_valid_rows=None):
-        """Build a PER-SHARD packed scan cache for the sharded serving path
-        (dist/sharded_packed.py): like prepare_scan, but rows ≥
-        num_valid_rows are declared PAD (each shard receives an equal-size
-        row block whose tail may be padding) and the cache must keep them
-        maskable by a scan-time `num_valid == num_valid_rows` prefix limit.
-        Default None = this method has no packed kernel; the sharded index
-        falls back to the XLA decode_fn scan."""
+    def prepare_tile_cache(self, codes, norms=None):
+        """Build the ORDER-PRESERVING packed scan layout (a
+        kernels/packed.PackedCorpus; rows stay where the caller put them)
+        for the packed-scan indexes: the IVF-as-tile-mask index
+        (index/ivf_packed.py) keeps rows sorted by coarse cluster so each
+        512-row tile maps to a contiguous cluster range, and the sharded
+        packed indexes build one per shard.  `norms` (original row ‖x‖)
+        are required for Metric.NIP.  Default None = this method has no
+        packed layout."""
         return None
 
     def packed_scan_raw(self, queries, packed, k, metric, num_valid=None,
-                        use_bf16=True, interpret=False, tile_mask=None,
-                        mask_cap=None):
-        """Maximize-form (scores, SCAN-POSITION ids) over a PackedCorpus —
-        the raw kernel entry the sharded path calls per shard under
-        shard_map.  The caller owns perm mapping, pad masking (num_valid)
-        and metric finalization.  tile_mask (N/512,) i32 restricts the
-        scan to masked-in tiles — no DMA or compute for masked-out tiles
-        (the IVF probed-tile path, index/ivf_packed.py); mask_cap is the
-        optional static short-grid cap (kernels/pallas_packed.py).  Only
-        required when prepare_shard_cache or prepare_tile_cache returns a
-        cache."""
+                        use_bf16=True, tile_mask=None, mask_cap=None):
+        """Maximize-form (scores, ROW-POSITION ids) over a PackedCorpus
+        (kernels/packed.packed_scan_topk).  The caller owns id mapping, pad
+        masking (num_valid) and metric finalization.  tile_mask (N/512,)
+        i32 restricts the scan to masked-in tiles; mask_cap is the optional
+        static cap on the compacted tile count.  Only required when
+        prepare_tile_cache returns a cache."""
         raise NotImplementedError
-
-    def prepare_tile_cache(self, codes, norms=None, num_queries=8):
-        """Build an ORDER-PRESERVING packed scan cache (perm=None, rows
-        stay where the caller put them) for tile-masked scans: the
-        IVF-as-tile-mask index (index/ivf_packed.py) keeps rows sorted by
-        coarse cluster so each 512-row kernel tile maps to a contiguous
-        cluster range, and restricts the packed kernel to the probed
-        tiles via packed_scan_raw(tile_mask=...).  Default None = no
-        packed kernel at this geometry."""
-        return None
 
     def residual_scorer(self):
         """Optionally return a CODE-SPACE window scorer for IVF list scans

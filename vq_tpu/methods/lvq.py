@@ -1,4 +1,4 @@
-"""Locally-adaptive Vector Quantization (LVQ), TPU-native.
+"""Locally-adaptive Vector Quantization (LVQ).
 
 Parity with the reference's single-level SVS-style LVQ
 (methods/lvq_quantization.py:23-151): global mean, per-vector lo/delta
@@ -75,8 +75,7 @@ class LVQ(BaseQuantizer):
 
     def compress(self, X: np.ndarray, chunk: int = 16384) -> np.ndarray:
         # row-chunked: pack_bits materializes an (n, D, bits) bit tensor
-        # (4.9 GB at 100k×1536×8 before reshape copies — measured
-        # RESOURCE_EXHAUSTED on the round-5 parity gate)
+        # (4.9 GB at 100k×1536×8 before reshape copies)
         out = []
         for i0 in range(0, X.shape[0], chunk):
             out.append(np.asarray(encode(

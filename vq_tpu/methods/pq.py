@@ -1,9 +1,9 @@
-"""Product Quantization, TPU-native.
+"""Product Quantization.
 
 Capability parity with the reference's faiss-backed ProductQuantizer
 (src/haag_vq/methods/product_quantization.py:9-99): M subquantizers × B bits,
 per-chunk codebooks of shape (M, 2^B, D/M).  Training runs all M subspace
-k-means problems as one vmapped batched-Lloyd program on the MXU
+k-means problems as one vmapped batched-Lloyd program
 (kernels/kmeans.py) instead of faiss's sequential per-subspace loop; encoding
 is a tiled matmul-argmin; decoding is the one-hot × codebook matmul shared
 with the fused ADC scan (kernels/adc.py).
@@ -38,8 +38,8 @@ def _to_subspaces(x: jax.Array, m: int) -> jax.Array:
 def fit(key: jax.Array, x, cfg: PQConfig, seed: int = 0) -> PQParams:
     # subsample rows BEFORE any device transfer or the (M, N, dsub)
     # transpose: kmeans only trains on max_points_per_centroid·K rows, and a
-    # full-corpus jnp.asarray is a 217 GB HBM transfer at the 53M target
-    # (VERDICT weak #3); host corpora (numpy/mmap) sample host-side
+    # full-corpus jnp.asarray is a 217 GB HBM transfer at the 53M target;
+    # host corpora (numpy/mmap) sample host-side
     from vq_tpu.data.sampling import host_sample_rows
 
     cap = cfg.kmeans.max_points_per_centroid * cfg.codebook_size
@@ -60,7 +60,7 @@ def encode_chunked(
     Peak memory is O(chunk), not O(N): a full-corpus (M, N, dsub)
     transpose plus a pad copy tripled the corpus footprint and OOM'd HBM
     at N=1M, D=1536.  Per chunk this is (optional rotation matmul +) one
-    batched einsum (MXU) + argmin; ‖x_sub‖² is constant per (row, m) so
+    batched einsum + argmin; ‖x_sub‖² is constant per (row, m) so
     argmin only needs ‖cb‖² − 2·x_sub·cb.  Shared by PQ and OPQ (which
     passes its learned rotation)."""
     cb = codebooks  # (M, K, dsub)
@@ -137,7 +137,7 @@ class PQ(BaseQuantizer):
         return lambda x: encode(params, x)
 
     def scan_topk(self, queries, codes, k, metric, norms=None, tile_rows=16384,
-                  use_bf16=True, approx=False, cache=None, num_valid=None):
+                  use_bf16=True, approx=False, num_valid=None):
         from vq_tpu.kernels.adc import scan_codes_topk
 
         return scan_codes_topk(

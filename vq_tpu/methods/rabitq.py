@@ -1,4 +1,4 @@
-"""RaBitQ / Extended RaBitQ, TPU-native.
+"""RaBitQ / Extended RaBitQ.
 
 Capability parity with the reference's two RaBitQ paths: the faiss 1-bit
 wrapper (methods/rabit_quantization.py:9-40) and the standalone multi-bit
@@ -13,10 +13,10 @@ per-coord nearest level, rescale t = ⟨s,ŝ⟩/⟨ŝ,ŝ⟩.  Code row layout ma
 the reference byte-for-byte: [packed B-bit indices ‖ ‖r‖ f32 ‖ t f32] =
 ceil(D·B/8)+8 bytes, self-contained rows.
 
-TPU-first search: the rotation is orthogonal, so the scan rotates the
-QUERIES once (q·x̂ = α·(qP)·ŝ + q·c with α = ‖r‖·t/√D) and each corpus tile
-only needs bit-unpack + tiny level lookup + one MXU matmul — never a D×D
-rotation per tile.
+Search: the rotation is orthogonal, so the scan rotates the QUERIES once
+(q·x̂ = α·(qP)·ŝ + q·c with α = ‖r‖·t/√D) and each corpus tile only needs
+bit-unpack + tiny level lookup + one matmul — never a D×D rotation per
+tile.
 """
 
 from __future__ import annotations
@@ -87,11 +87,8 @@ def encode(params: RaBitQParams, x: jax.Array, num_bits: int) -> jax.Array:
 def _shat_from_packed(
     packed: jax.Array, levels: jax.Array, num_bits: int, d: int
 ) -> jax.Array:
-    """Unpack indices and look up levels as a one-hot matmul (MXU-native
-    gather; the level table has ≤ 256 entries)."""
-    idx = unpack_bits(packed, num_bits, d)
-    onehot = jax.nn.one_hot(idx, levels.shape[0], dtype=levels.dtype)
-    return jnp.dot(onehot, levels, precision=jax.lax.Precision.HIGHEST)
+    """Unpack indices and look up their levels (≤ 256-entry table)."""
+    return jnp.take(levels, unpack_bits(packed, num_bits, d))
 
 
 def decode(params: RaBitQParams, codes: jax.Array, num_bits: int) -> jax.Array:
@@ -109,22 +106,20 @@ def decode(params: RaBitQParams, codes: jax.Array, num_bits: int) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# packed-word scan layout (Pallas fast path, kernels/pallas_packed.py)
+# packed-word scan layout (kernels/packed.py)
 # ---------------------------------------------------------------------------
 
 
 # B ≥ this width stores the precomputed f32 value plane instead of packed
-# codes + 2^B-select shared-table lookup (the B=8 path measured select-sum
-# bound at 51.5 ms vs ~6 ms for B ≤ 4 — kernels/pallas_packed.py "values").
+# codes + shared-table lookup (kernels/packed.py "values").
 _VALUES_MIN_BITS = 5
 
 
 def _packed_segspec(d: int, num_bits: int):
-    from vq_tpu.kernels.pallas_packed import make_segspec
+    from vq_tpu.kernels.packed import make_segspec
 
     # scale_col 0 = the estimator scale α = ‖r‖√D/(t‖ŝ‖²), folded into the
-    # dequantized values so the MXU emits α·⟨q,ŝ⟩ directly (an output-side
-    # (1, T) row scale measured 6× slower — kernels/pallas_packed.py)
+    # dequantized values so the matmul emits α·⟨q,ŝ⟩ directly
     if num_bits >= _VALUES_MIN_BITS:
         return make_segspec(num_bits, d, "values", 0)
     return make_segspec(num_bits, d, "shared", 0)
@@ -138,11 +133,11 @@ def prepare_packed(
     row_chunk: int = 131072,
 ):
     """Byte rows → PackedCorpus.  factors = (α, c2, original-norm-or-1):
-    α = ‖r‖√D/(t‖ŝ‖²) is the estimator scale the kernel folds into the
+    α = ‖r‖√D/(t‖ŝ‖²) is the estimator scale the scan folds into the
     dequantized values (scale_col 0), c2 = 2α·(ŝ·c_rot) + ‖r‖² is the
     precomputed L2 shift (r2_cols) — all row-side score constants leave
-    the kernel (kernels/pallas_packed.py module docstring)."""
-    from vq_tpu.kernels.pallas_packed import PackedCorpus, pack_words
+    the scan (kernels/packed.py module docstring)."""
+    from vq_tpu.kernels.packed import PackedCorpus, pack_words
 
     d = params.centroid.shape[0]
     ib = packed_bytes(d, num_bits)
@@ -162,40 +157,25 @@ def prepare_packed(
         idx = unpack_bits(rows[:, :ib], num_bits, d)
         nrm = bytes_to_f32(rows[:, ib : ib + 4])
         t = bytes_to_f32(rows[:, ib + 4 : ib + 8])
-        # variance-prune stats: the estimator's effective residual scale is
-        # α‖ŝ‖ = ‖r‖·√D/(t·‖ŝ‖); ‖r‖² is the exact residual norm² term in
-        # the L2 score (methods/saq._tile_stats contract: min r², max r)
         s_hat = params.levels[idx]
         snorm_sq = jnp.sum(s_hat * s_hat, axis=1)
         alpha = nrm * jnp.sqrt(jnp.float32(d)) / jnp.maximum(
             t * snorm_sq, 1e-12
         )
-        r_eff = alpha * jnp.sqrt(snorm_sq)
         cdot = jnp.dot(s_hat, c_rot, precision=jax.lax.Precision.HIGHEST)
         c2 = 2.0 * alpha * cdot + nrm * nrm
         if seg.dequant == "values":
-            # f32 value plane (unscaled ŝ — the kernel applies α via
-            # scale_col), the full-speed B ≥ 5 layout
+            # f32 value plane (unscaled ŝ — the scan applies α via
+            # scale_col)
             w = s_hat.astype(jnp.float32)
         else:
-            w = pack_words(idx, num_bits, seg.beff, tile=512)
-        return w, jnp.stack([alpha, c2], axis=1), nrm, r_eff
+            w = pack_words(idx, num_bits, seg.beff)
+        return w, jnp.stack([alpha, c2], axis=1)
 
-    w_chunks, f_chunks, n_chunks, r_chunks = [], [], [], []
-    for i0 in range(0, n_pad, row_chunk):
-        w, f, nr, r = convert(codes[i0 : min(i0 + row_chunk, n_pad)])
-        w_chunks.append(w)
-        f_chunks.append(f)
-        n_chunks.append(nr)
-        r_chunks.append(r)
-    words = jnp.concatenate(w_chunks, axis=0) if len(w_chunks) > 1 else w_chunks[0]
-    fac = jnp.concatenate(f_chunks, axis=0) if len(f_chunks) > 1 else f_chunks[0]
-    nrm_r = jnp.concatenate(n_chunks, axis=0) if len(n_chunks) > 1 else n_chunks[0]
-    r_eff = jnp.concatenate(r_chunks, axis=0) if len(r_chunks) > 1 else r_chunks[0]
-    # min/max columns: min over rows of ‖r‖ (the −nrm² score term), max of
-    # the Cauchy-Schwarz scale α‖ŝ‖; no CAQ margin for this estimator.
-    # Columns 3-4: original-row-norm envelope for the Metric.NIP bound
-    # (1.0 when no norms — consistent with the scoring default).
+    chunks = [convert(codes[i0 : min(i0 + row_chunk, n_pad)])
+              for i0 in range(0, n_pad, row_chunk)]
+    words = jnp.concatenate([c[0] for c in chunks], axis=0)
+    fac = jnp.concatenate([c[1] for c in chunks], axis=0)
     nrm_col = (
         jnp.ones((n, 1), jnp.float32)
         if norms is None
@@ -203,43 +183,24 @@ def prepare_packed(
     )
     if pad:
         nrm_col = jnp.pad(nrm_col, ((0, pad), (0, 0)), constant_values=1.0)
-    valid = jnp.arange(n_pad) < n
-    min_r = jnp.where(valid, nrm_r, jnp.inf).reshape(-1, 512).min(axis=1)
-    min_r = jnp.where(jnp.isfinite(min_r), min_r, 0.0)
-    max_r = jnp.where(valid, r_eff, 0.0).reshape(-1, 512).max(axis=1)
-    if norms is None:
-        min_n = jnp.ones_like(min_r)
-        max_n = jnp.ones_like(max_r)
-    else:
-        nn = nrm_col[:, 0]
-        min_n = jnp.where(valid, nn, jnp.inf).reshape(-1, 512).min(axis=1)
-        min_n = jnp.where(jnp.isfinite(min_n), min_n, 1.0)
-        max_n = jnp.where(valid, nn, 0.0).reshape(-1, 512).max(axis=1)
-        max_n = jnp.where(max_n > 0, max_n, 1.0)
-    stats = jnp.stack(
-        [min_r, max_r, jnp.zeros_like(max_r), min_n, max_n], axis=1
-    ).astype(jnp.float32)
     fac = jnp.concatenate([fac, nrm_col], axis=1)
-    from vq_tpu.methods.saq import prune_hint_from_stats
-
     return PackedCorpus(words=(words,), factors=fac, num_rows=n,
-                        tile_stats=stats, has_norms=norms is not None,
-                        prune_hint=prune_hint_from_stats(stats))
+                        has_norms=norms is not None)
 
 
 def _packed_scan(params, queries, packed, k, metric, num_bits,
-                 num_valid=None, interpret=False, use_bf16=True,
-                 prune=False, tile_mask=None, mask_cap=None):
-    from vq_tpu.kernels.pallas_packed import packed_scan_topk
+                 num_valid=None, use_bf16=True, tile_mask=None,
+                 mask_cap=None):
+    from vq_tpu.kernels.packed import packed_scan_topk
 
+    if metric == Metric.NIP and not packed.has_norms:
+        raise ValueError("Metric.NIP needs a packed cache built with norms")
     d = params.centroid.shape[0]
     seg = _packed_segspec(d, num_bits)
+    queries = jnp.asarray(queries, jnp.float32)
     qr = jnp.dot(queries, params.rotation, precision=jax.lax.Precision.HIGHEST)
-    cr = jnp.dot(params.centroid, params.rotation,
-                 precision=jax.lax.Precision.HIGHEST)
     qc = jnp.dot(queries, params.centroid, precision=jax.lax.Precision.HIGHEST)
     c_sq = jnp.sum(params.centroid**2)
-    q_cat = qr
     if metric == Metric.L2:
         kind, qa = "l2", 2.0 * qc - c_sq
     elif metric == Metric.IP:
@@ -252,30 +213,11 @@ def _packed_scan(params, queries, packed, k, metric, num_bits,
     lv_tables = (
         () if seg.dequant == "values" else (params.levels.reshape(1, -1),)
     )
-    qprune = None
-    if prune:
-        assert packed.tile_stats is not None
-        b = jnp.linalg.norm(
-            (qr - cr[None, :]) if metric == Metric.L2 else qr, axis=1
-        )
-        qprune = jnp.stack([qa, b], axis=1)
     return packed_scan_topk(
-        q_cat, qa, packed.words, packed.factors, lv_tables, (seg,), k,
-        family="rabitq", metric_kind=kind, norm_col=2, r2_cols=(1,),
-        limit=limit, interpret=interpret,
-        use_bf16=use_bf16, prune=prune,
-        tile_stats=packed.tile_stats if prune else None, qprune=qprune,
-        tile_mask=tile_mask, mask_cap=mask_cap,
+        qr, qa, packed.words, packed.factors, lv_tables, (seg,), k,
+        metric_kind=kind, norm_col=2, r2_cols=(1,), limit=limit,
+        use_bf16=use_bf16, tile_mask=tile_mask, mask_cap=mask_cap,
     )
-
-
-def _packed_available(d, num_bits, num_q, interpret=False):
-    from vq_tpu.kernels.pallas_packed import packed_scan_available
-
-    seg = _packed_segspec(d, num_bits)
-    lv_sizes = [] if seg.dequant == "values" else [1 << num_bits]
-    ok = packed_scan_available((seg,), num_q, d, 3, lv_sizes)
-    return ok or (interpret and num_bits <= 8)
 
 
 def scan_topk(
@@ -290,59 +232,16 @@ def scan_topk(
     use_bf16: bool = True,
     num_valid: Optional[jax.Array] = None,
     approx: bool = False,
-    packed_cache=None,
-    use_packed: Optional[bool] = None,
-    interpret: bool = False,
-    prune_tiles: Optional[bool] = None,
 ):
-    """Fused RaBitQ scan: rotated queries, per-tile bit-unpack + level
-    lookup + MXU scoring; no per-tile D×D rotation.  prune_tiles enables
-    the packed kernel's variance-prune stage (auto when stats exist)."""
+    """Fused RaBitQ scan over the stored byte rows: rotated queries,
+    per-tile bit-unpack + level lookup + one matmul; no per-tile D×D
+    rotation."""
     d = params.centroid.shape[0]
     ib = packed_bytes(d, num_bits)
     n = codes.shape[0]
     num_q = queries.shape[0]
     tile = min(tile_rows, max(8, n))
     use_bf16 = use_bf16 and _bf16_supported()
-
-    queries = jnp.asarray(queries, dtype=jnp.float32)
-    if use_packed is None:
-        use_packed = (
-            n >= 512 and k <= 128
-            and _packed_available(d, num_bits, num_q, interpret=interpret)
-        )
-    if use_packed:
-        from vq_tpu.kernels.adc import _finalize as _fin
-
-        if metric == Metric.NIP:
-            if packed_cache is not None and not packed_cache.has_norms:
-                raise ValueError(
-                    "Metric.NIP needs a packed cache built with norms"
-                )
-            if packed_cache is None and norms is None:
-                raise ValueError("Metric.NIP requires original row norms")
-        packed = packed_cache if packed_cache is not None else prepare_packed(
-            params, codes, num_bits,
-            norms=norms if metric == Metric.NIP else None,
-        )
-        prune = (
-            prune_tiles
-            if prune_tiles is not None
-            else (packed.tile_stats is not None and packed.prune_hint)
-        )
-        if prune:
-            outs, outi, _ = _packed_scan(
-                params, queries, packed, k, metric, num_bits,
-                num_valid=num_valid, interpret=interpret, use_bf16=use_bf16,
-                prune=True,
-            )
-        else:
-            outs, outi = _packed_scan(
-                params, queries, packed, k, metric, num_bits,
-                num_valid=num_valid, interpret=interpret, use_bf16=use_bf16,
-            )
-        return _fin(outs, outi, metric,
-                    jnp.sum(queries * queries, axis=-1))
     dt = jnp.bfloat16 if use_bf16 else jnp.float32
     prec = jax.lax.Precision.DEFAULT if use_bf16 else jax.lax.Precision.HIGHEST
 
@@ -427,51 +326,26 @@ class RaBitQ(BaseQuantizer):
         return lambda x: encode(params, x, bits)
 
     def scan_topk(self, queries, codes, k, metric, norms=None, tile_rows=16384,
-                  use_bf16=True, approx=False, cache=None, num_valid=None,
-                  prune_tiles=None):
+                  use_bf16=True, approx=False, num_valid=None):
         return scan_topk(
             self.params, queries, codes, k, metric, self.cfg.num_bits,
             norms=norms, tile_rows=tile_rows, use_bf16=use_bf16, approx=approx,
-            packed_cache=cache, num_valid=num_valid, prune_tiles=prune_tiles,
+            num_valid=num_valid,
         )
 
-    def prepare_scan(self, codes, norms=None, num_queries=8):
-        if not _packed_available(self._dim, self.cfg.num_bits, num_queries):
-            return None
+    def prepare_tile_cache(self, codes, norms=None):
+        """Order-preserving PackedCorpus for the packed scan (base
+        contract)."""
         return prepare_packed(self.params, jnp.asarray(codes),
                               self.cfg.num_bits, norms=norms)
-
-    def prepare_shard_cache(self, codes, norms=None, num_queries=8,
-                            num_valid_rows=None):
-        """Per-shard packed cache (dist/sharded_packed.py).  Unsorted, so
-        pad rows stay at the tail and the scan-time num_valid prefix
-        limit masks them directly."""
-        interp = jax.default_backend() != "tpu"
-        if not _packed_available(self._dim, self.cfg.num_bits, num_queries,
-                                 interpret=interp):
-            return None
-        return prepare_packed(self.params, jnp.asarray(codes),
-                              self.cfg.num_bits, norms=norms)
-
-    def prepare_tile_cache(self, codes, norms=None, num_queries=8):
-        """Order-preserving packed cache for tile-masked scans (base
-        contract) — the shard cache is already unsorted."""
-        return self.prepare_shard_cache(codes, norms=norms,
-                                        num_queries=num_queries)
 
     def packed_scan_raw(self, queries, packed, k, metric, num_valid=None,
-                        use_bf16=True, interpret=False, tile_mask=None,
-                        mask_cap=None):
-        from vq_tpu.kernels.pallas_packed import PRUNE_MAX_TILES
-
-        prune = (packed.tile_stats is not None and packed.prune_hint
-                 and packed.factors.shape[0] // 512 <= PRUNE_MAX_TILES)
-        out = _packed_scan(
+                        use_bf16=True, tile_mask=None, mask_cap=None):
+        return _packed_scan(
             self.params, queries, packed, k, metric, self.cfg.num_bits,
-            num_valid=num_valid, interpret=interpret, use_bf16=use_bf16,
-            prune=prune, tile_mask=tile_mask, mask_cap=mask_cap,
+            num_valid=num_valid, use_bf16=use_bf16, tile_mask=tile_mask,
+            mask_cap=mask_cap,
         )
-        return out[0], out[1]
 
     def residual_scorer(self):
         """Code-space window scorer (base contract): with

@@ -1,4 +1,4 @@
-"""Scalar Quantization, TPU-native.
+"""Scalar Quantization.
 
 Parity with reference methods/scalar_quantization.py:6-100: per-dimension
 min/max uniform quantization at 4/8/16 bits, with 4-bit nibble packing
@@ -30,7 +30,7 @@ def fit(x, cfg: SQConfig) -> SQParams:
     """x may be a jax array, numpy array, or np.memmap (streamed)."""
     # chunked per-dim min/max: host corpora (numpy/mmap) stream to device in
     # bounded chunks instead of one full-corpus transfer (the reference SQ's
-    # 53M OOM guard, scalar_quantization.py:41-50; VERDICT weak #3)
+    # 53M OOM guard, scalar_quantization.py:41-50)
     from vq_tpu.data.sampling import chunked_min_max
 
     lo, hi = chunked_min_max(x)

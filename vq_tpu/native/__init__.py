@@ -1,7 +1,7 @@
 """Native host-side components (C++ via ctypes).
 
-The reference's performance core is a vendored C++20 engine; its TPU-native
-counterpart keeps all per-vector compute in XLA/Pallas, but the host-side
+The reference's performance core is a vendored C++20 engine; this package
+keeps all per-vector compute in XLA, but the host-side
 scalar programs — the bit allocators and the exact 1-D codebook DP
 (SURVEY.md §7.3: "scalar dynamic programs don't vectorize; run them
 host-side ... on sampled columns") — live here as a small C++ library.

@@ -1,7 +1,7 @@
 // Native host-side components for vq_tpu.
 //
-// TPU-native re-implementation of the reference engine's host-side scalar
-// programs (which don't vectorize onto the MXU/VPU — SURVEY.md §7.3):
+// Re-implementation of the reference engine's host-side scalar
+// programs (which don't vectorize — SURVEY.md §7.3):
 //   * greedy bit allocator   (reference external/saq/src/bit_allocator_greedy.cpp)
 //   * exact DP bit allocator (reference external/saq/src/quantization_plan.cpp:144-255)
 //   * exact 1-D k-means codebook via divide-and-conquer DP, O(k·n·log n)

@@ -3,10 +3,9 @@
 Parity with the SAQ engine's QueryRuntimeMetrics (reference
 external/saq/include/saq/caq_estimator.h:33-37, saq_searcher.h:157-165:
 fast_bitsum / acc_bitsum / total_comp_cnt — bits actually scanned per
-stage).  On TPU the scan is dense, so the counters are exact functions of
-the scan geometry; combined with a measured wall time they give effective
-HBM bandwidth and MXU utilization per scan — the numbers that say how far
-from speed-of-light a kernel is.
+stage).  The scan is dense, so the counters are exact functions of the scan
+geometry; combined with a measured wall time they give the effective code
+bandwidth and FLOP rate per scan.
 """
 
 from __future__ import annotations
@@ -22,7 +21,6 @@ class ScanStats:
     num_queries: int
     dim: int
     code_bytes_per_row: float
-    codebook_entries: int = 256  # K per subquantizer (PQ family)
 
     @property
     def bytes_scanned(self) -> float:
@@ -31,18 +29,9 @@ class ScanStats:
         return self.num_rows * self.code_bytes_per_row
 
     @property
-    def decode_flops(self) -> float:
-        """One-hot × codebook decode: N·K·D MACs."""
-        return 2.0 * self.num_rows * self.codebook_entries * self.dim
-
-    @property
     def score_flops(self) -> float:
-        """Q·x̂ᵀ scoring: Q·N·D MACs."""
+        """Q·x̂ᵀ scoring: Q·N·D MACs (the decode is a gather, no FLOPs)."""
         return 2.0 * self.num_queries * self.num_rows * self.dim
-
-    @property
-    def total_flops(self) -> float:
-        return self.decode_flops + self.score_flops
 
     def report(self, wall_seconds: float) -> dict:
         """Effective rates for a measured scan time."""
@@ -51,32 +40,7 @@ class ScanStats:
             "rows_scanned": self.num_rows,
             "bytes_scanned": self.bytes_scanned,
             "effective_code_bandwidth_gbps": self.bytes_scanned / w / 1e9,
-            "effective_tflops": self.total_flops / w / 1e12,
+            "effective_tflops": self.score_flops / w / 1e12,
             "qps": self.num_queries / w,
             "rows_per_s": self.num_rows * self.num_queries / w,
         }
-
-    def report_staged(
-        self, wall_seconds: float, tiles_scanned: int, tiles_total: int,
-        tile: int = 512,
-    ) -> dict:
-        """Per-stage counters for a variance-pruned packed scan — the
-        direct QueryRuntimeMetrics analog (fast_bitsum / acc_bitsum /
-        total_comp_cnt): stage 1 touches only the (3,) f32 tile stats of
-        every tile (fast_bitsum); stage 2 unpacks/dequantizes/scores the
-        codes of the tiles that survived (acc_bitsum, total_comp_cnt).
-        `tiles_scanned` comes from the kernel's scanned counter
-        (kernels/pallas_packed.packed_scan_topk(prune=True) third output).
-        """
-        frac = tiles_scanned / max(tiles_total, 1)
-        rows_scored = tiles_scanned * tile
-        out = self.report(wall_seconds)
-        out.update(
-            fast_bitsum=tiles_total * 3 * 32,
-            acc_bitsum=int(frac * self.bytes_scanned * 8),
-            total_comp_cnt=rows_scored * self.num_queries,
-            tiles_scanned=tiles_scanned,
-            tiles_total=tiles_total,
-            scan_fraction=frac,
-        )
-        return out
